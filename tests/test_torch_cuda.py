@@ -1,0 +1,122 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device.  On a machine with
+one (and nvcc), run them without JAX, whose conftest is not needed here:
+
+  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerance: max-rel 2e-5, both sides being float32 FFTs summed in another
+order; sum_a|h|^2 is compared as such (inv = its reciprocal peaks at the
+weakest bin).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ofdm_ls_mrc_tpu_torch import FrameConfig, golden, sim
+from ofdm_ls_mrc_tpu_torch.models import UplinkReceiver
+from ofdm_ls_mrc_tpu_torch.ops import ls
+from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+pytestmark = pytest.mark.cuda
+
+TOL = 2e-5
+GEOMETRIES = [(256, 1, 5), (1024, 16, 101), (4096, 4, 9)]  # (F, antennas, symbols)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def max_rel(got, want):
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def frame_on(dev, f, a, s, cp, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    z = 0.1 * (rng.standard_normal((s, a, f + cp)) + 1j * rng.standard_normal((s, a, f + cp)))
+    if dtype == "int16":
+        frame = CArray(torch.from_numpy(golden.io.plane_to_sc16(z.real)).to(dev),
+                       torch.from_numpy(golden.io.plane_to_sc16(z.imag)).to(dev))
+    else:
+        frame = CArray.from_numpy(z.astype(np.complex64), dev)
+    pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+    return frame, pilot
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 72])
+@pytest.mark.parametrize("f,a,s", GEOMETRIES)
+def test_pilot_ls_kernel_matches_plain(dev, f, a, s, cp, dtype):
+    frame, pilot = frame_on(dev, f, a, s, cp, dtype)
+    x_full = ls.pad_pilot(pilot, dev)
+    y = frame[..., cp:]
+    before = pipe.launch_counts["pilot_ls"]
+    h, inv = pipe.estimate_pilot_fused(y[0], x_full)
+    h_p, inv_p = pipe.estimate_pilot_plain(y[0], x_full)
+    torch.cuda.synchronize()
+    assert pipe.launch_counts["pilot_ls"] == before + 1
+    assert max_rel(h.to_numpy(), h_p.to_numpy()) < TOL
+    assert max_rel(1 / inv.cpu().numpy(), 1 / inv_p.cpu().numpy()) < TOL
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 72])
+@pytest.mark.parametrize("f,a,s", GEOMETRIES)
+def test_fft_mrc_kernel_matches_plain(dev, f, a, s, cp, dtype):
+    frame, pilot = frame_on(dev, f, a, s, cp, dtype)
+    y = frame[..., cp:]
+    h, inv = pipe.estimate_pilot_plain(y[0], ls.pad_pilot(pilot, dev))
+    before = pipe.launch_counts["fft_mrc"]
+    out = pipe.fused_pipeline(y[1:], h, inv)
+    torch.cuda.synchronize()
+    assert pipe.launch_counts["fft_mrc"] == before + 1
+    want = pipe.fused_pipeline_plain(y[1:], h, inv).to_numpy()
+    assert out.shape == (s - 1, f - 1)
+    assert max_rel(out.to_numpy(), want) < TOL
+
+
+def test_receiver_on_card_matches_golden(dev):
+    rng = np.random.default_rng(7)
+    cfg = FrameConfig(num_antennas=16, fft_size=1024, cyclic_prefix=72, frame_len=101)
+    data, _ = sim.random_symbols(rng, (cfg.num_data_symbols, cfg.num_subcarriers), "16qam")
+    pilot = np.exp(2j * np.pi * rng.random(cfg.num_subcarriers)).astype(np.complex64)
+    rx_frame = sim.ChannelModel(16, 1024, num_taps=16, snr_db=25.0, seed=9).apply(
+        sim.make_tx_frame(data, pilot, 72), 72)
+    out = UplinkReceiver(cfg, pilot, device=dev).demod_frame(rx_frame).to_numpy()
+    assert max_rel(out, golden.demod_frame(rx_frame, pilot, 72)) < 5e-5
+    assert sim.evm_db(np.fft.fftshift(out, axes=-1), data) < -30.0
+
+
+@pytest.mark.parametrize("cp", [0, 72])
+def test_capture_is_one_launch_per_kernel(dev, cp):
+    rng = np.random.default_rng(8)
+    cfg = FrameConfig(num_antennas=4, fft_size=1024, cyclic_prefix=cp, frame_len=9)
+    shape = (3, 9, 4, 1024 + cp)
+    frames = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    pilot = np.exp(2j * np.pi * rng.random(1023)).astype(np.complex64)
+    rx = UplinkReceiver(cfg, pilot, device=dev)
+    pipe.reset_launch_counts()
+    got = rx.demod_capture(frames).to_numpy()
+    assert pipe.launch_counts == {"pilot_ls": 1, "fft_mrc": 1}
+    for k in range(3):
+        assert max_rel(got[k], rx.demod_frame(frames[k]).to_numpy()) < 1e-6
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    frame, pilot = frame_on(dev, 256, 2, 3, 0, "f32")
+    x_full = ls.pad_pilot(pilot, dev)
+    with pytest.raises(TypeError):
+        pipe.estimate_pilot_fused(CArray(frame.re[0].double(), frame.im[0].double()), x_full)
+    with pytest.raises(ValueError):
+        pipe.estimate_pilot_fused(frame[0], ls.pad_pilot(pilot, "cpu"))
+    with pytest.raises(ValueError):  # rows not contiguous
+        pipe.estimate_pilot_fused(CArray(frame.re[0].t(), frame.im[0].t()), x_full)
+    h, inv = pipe.estimate_pilot_plain(frame[0], x_full)
+    with pytest.raises(ValueError):
+        pipe.fused_pipeline(frame[1:], h, inv[:-1])
