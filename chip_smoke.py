@@ -7,17 +7,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. toolchain: Python, torch, CUDA, nvcc, triton/ninja, the card's name and
    power limit; the card must be compute capability 9.0 (Hopper).
-2. build: compiles csrc/ with nvcc for sm_90a (ptxas report printed).
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (16 antennas x 1024 bins, 101 symbols), f32 and
-   int16 input, cyclic prefix 0 and 72, max-rel below 2e-5 (both are fp32
-   FFTs summed in a different order).
+2. build: compiles csrc/ with nvcc for sm_90a, one process per source, all
+   at once (ptxas report printed).
+3. kernels: each kernel against its plain PyTorch version on the card, max-rel
+   below 2e-5 (both sides fp32 FFTs or sums taken in another order):
+   pilot_ls, fft_mrc and mrc_demod at the main path's shapes (16 antennas x
+   1024 bins, 101 symbols), f32 and int16 input, cyclic prefix 0 and 72;
+   mrc_demod also at F = 64, 4 antennas; the io probes auto, manual2 and
+   manual3s with compute 0 and 2 on one 16 x 1024 x 101 f32 frame.
 4. main path: UplinkReceiver(16 x 1024, cp 72, 101 symbols, fused, cuda) on
    a 16-QAM frame through a 16-tap 25 dB channel: EVM below -30 dB, max-rel
-   below 5e-5 against the NumPy golden, and both kernels launched.
-5. timing (CUDA events): each kernel and its plain version on the main
-   path's frame, then demod_capture over 20 device-resident sc16 frames with
-   the prefix stripped on the host (bench.py's default mode, seed 0).
+   below 5e-5 against the NumPy golden, pilot_ls and fft_mrc launched.
+5. split-phase path: estimate_channel + demod_data on the same frame: the
+   same EVM and golden bounds, mrc_demod launched.
+6. streaming path: StreamingDemodulator over the same frame, symbol by
+   symbol, composed and fused bodies: max-rel below 2e-5 against
+   demod_frame, the fused body through pilot_ls and fft_mrc; per-symbol
+   latency p50/p99 (CUDA events and host clock, device-resident symbols).
+7. probe path: tools/dma_probe over 20 device-resident 16 x 1024 x 101 f32
+   frames, each variant with compute 0 and 2; the fastest variant without
+   compute gives the measured io floor.
+8. timing: each kernel, its plain version and the PyTorch library call
+   (torch.fft.fft over the same rows for the FFT kernels, one torch.sum for
+   the probes) at the main path's shapes; demod_capture over 20
+   device-resident sc16 frames with the prefix stripped on the host
+   (bench.py's default mode, seed 0).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -27,6 +41,7 @@ The second-to-last lines are the kernels' JSON record and the card's
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,12 +50,19 @@ import numpy as np
 
 ANTENNAS, FFT, SYMBOLS, CP = 16, 1024, 101, 72
 CAPTURE_FRAMES = 20
+PROBE_FRAMES, PROBE_TS, PROBE_VARIANTS = 20, 2, ("auto", "manual2", "manual3s")
+STREAM_FRAMES = 3           # timed passes of the streaming path over the frame
 KERNEL_TOL = 2e-5
 GOLDEN_TOL = 5e-5
 EVM_MAX_DB = -30.0
-REPLACES = {
-    "pilot_ls": "ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:222",
-    "fft_mrc": "ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:320",
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (published)
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores (published)
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "pilot_ls": ("pilot_ls.cu", "ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:222"),
+    "fft_mrc": ("fft_mrc.cu", "ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:320"),
+    "mrc_demod": ("mrc_demod.cu", "ofdm_ls_mrc_tpu/ops/pallas_mrc.py:62"),
+    "io_auto": ("io_probe.cu", "tools/dma_probe.py:63"),
+    "io_manual": ("io_probe.cu", "tools/dma_probe.py:99"),
 }
 
 
@@ -53,8 +75,22 @@ def max_rel(got: np.ndarray, want: np.ndarray) -> float:
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
+def max_abs(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.max(np.abs(got - want)))
+
+
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def fft_flops(rows: int, f: int) -> float:
+    return 5.0 * rows * f * math.log2(f)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple:
+    """(least time in ms, 'bytes' or 'operations') at the published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> int:
@@ -66,12 +102,23 @@ def main() -> int:
 
     from ofdm_ls_mrc_tpu_torch import FrameConfig, golden, sim
     from ofdm_ls_mrc_tpu_torch.kernels import build
-    from ofdm_ls_mrc_tpu_torch.models import UplinkReceiver
-    from ofdm_ls_mrc_tpu_torch.ops import ls
+    from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
+    from ofdm_ls_mrc_tpu_torch.ops import fft as fft_ops
+    from ofdm_ls_mrc_tpu_torch.ops import fused_mrc, ls
     from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
     from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+    from ofdm_ls_mrc_tpu_torch.tools import dma_probe
 
     dev = torch.device("cuda", 0)
+    counters = (pipe.launch_counts, fused_mrc.launch_counts, dma_probe.launch_counts)
+
+    def reset_counts() -> None:
+        for c in counters:
+            for name in c:
+                c[name] = 0
+
+    def counts() -> dict:
+        return {name: n for c in counters for name, n in c.items()}
 
     # -- 1. toolchain -----------------------------------------------------
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -96,40 +143,68 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     # -- 3. each kernel against its plain version ---------------------------
+    def frame_of(rng, shape, dtype):
+        z = 0.1 * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+        if dtype == "int16":
+            return CArray(torch.from_numpy(golden.io.plane_to_sc16(z.real)).to(dev),
+                          torch.from_numpy(golden.io.plane_to_sc16(z.imag)).to(dev))
+        return CArray.from_numpy(z.astype(np.complex64), dev)
+
+    def composed_estimate(pilot_rows, x_full):
+        return ls.estimate_channel_full(fft_ops.fft(pipe.widen_sc16(pilot_rows)), x_full)
+
+    def check(name, label, pairs, abs_pairs=None):
+        """pairs: (kernel, plain) numpy arrays held to the max-rel bound;
+        max-abs over abs_pairs (the kernel's outputs), by default the same."""
+        rel = max(max_rel(k, p) for k, p in pairs)
+        err = max(max_abs(k, p) for k, p in (abs_pairs or pairs))
+        errs_abs[name] = max(errs_abs[name], err)
+        print(f"check {name} {label}: max-rel {rel:.3e}  max-abs {err:.3e}")
+        require(rel < KERNEL_TOL, f"{name} {label}: max-rel {rel:.3e} >= {KERNEL_TOL}")
+
+    errs_abs = {name: 0.0 for name in KERNELS}
     rng = np.random.default_rng(1)
     pilot = np.exp(2j * np.pi * rng.random(FFT - 1)).astype(np.complex64)
     x_full = ls.pad_pilot(pilot, dev)
-    max_abs = {"pilot_ls": 0.0, "fft_mrc": 0.0}
     for dtype in ("f32", "int16"):
         for cp in (0, CP):
-            shape = (SYMBOLS, ANTENNAS, FFT + cp)
-            z = 0.1 * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
-            if dtype == "int16":
-                frame = CArray(torch.from_numpy(golden.io.plane_to_sc16(z.real)).to(dev),
-                               torch.from_numpy(golden.io.plane_to_sc16(z.imag)).to(dev))
-            else:
-                frame = CArray.from_numpy(z.astype(np.complex64), dev)
+            label = f"{dtype} cp={cp}"
+            frame = frame_of(rng, (SYMBOLS, ANTENNAS, FFT + cp), dtype)
             y = frame[..., cp:]
             h_k, inv_k = pipe.estimate_pilot_fused(y[0], x_full)
             h_p, inv_p = pipe.estimate_pilot_plain(y[0], x_full)
             out_k = pipe.fused_pipeline(y[1:], h_p, inv_p)
             out_p = pipe.fused_pipeline_plain(y[1:], h_p, inv_p)
+            hconj, hsqrd = composed_estimate(y[0], x_full)
+            eq_k = fused_mrc.fused_demod(y[1:], hconj, hsqrd)
+            eq_p = fused_mrc.fused_demod_plain(y[1:], hconj, hsqrd)
             torch.cuda.synchronize()
-            errs = {
-                "pilot_ls": (max_rel(h_k.to_numpy(), h_p.to_numpy()),
-                             # sum_a|h|^2: inv, its reciprocal, peaks at the weakest bin
-                             max_rel(1 / inv_k.cpu().numpy(), 1 / inv_p.cpu().numpy())),
-                "fft_mrc": (max_rel(out_k.to_numpy(), out_p.to_numpy()),),
-            }
-            max_abs["pilot_ls"] = max(max_abs["pilot_ls"], float(
-                np.max(np.abs(h_k.to_numpy() - h_p.to_numpy()))))
-            max_abs["fft_mrc"] = max(max_abs["fft_mrc"], float(
-                np.max(np.abs(out_k.to_numpy() - out_p.to_numpy()))))
-            print(f"check {dtype} cp={cp}: " + "  ".join(
-                f"{name} max-rel {max(e):.3e}" for name, e in errs.items()))
-            for name, e in errs.items():
-                require(max(e) < KERNEL_TOL,
-                        f"{name} {dtype} cp={cp}: max-rel {max(e):.3e} >= {KERNEL_TOL}")
+            # sum_a|h|^2: inv, its reciprocal, peaks at the weakest bin
+            inv_k, inv_p = inv_k.cpu().numpy(), inv_p.cpu().numpy()
+            check("pilot_ls", label, [(h_k.to_numpy(), h_p.to_numpy()), (1 / inv_k, 1 / inv_p)],
+                  [(h_k.to_numpy(), h_p.to_numpy()), (inv_k, inv_p)])
+            check("fft_mrc", label, [(out_k.to_numpy(), out_p.to_numpy())])
+            check("mrc_demod", label, [(eq_k.to_numpy(), eq_p.to_numpy())])
+    for dtype in ("f32", "int16"):  # the 64-bin geometry: 8 symbols a block
+        frame = frame_of(rng, (SYMBOLS, 4, 64), dtype)
+        small_x = ls.pad_pilot(pilot[:63], dev)
+        hconj, hsqrd = composed_estimate(frame[0], small_x)
+        eq_k = fused_mrc.fused_demod(frame[1:], hconj, hsqrd)
+        eq_p = fused_mrc.fused_demod_plain(frame[1:], hconj, hsqrd)
+        torch.cuda.synchronize()
+        check("mrc_demod", f"F=64 A=4 {dtype}", [(eq_k.to_numpy(), eq_p.to_numpy())])
+    pre, pim, bias, wmat = dma_probe.make_frames(1, SYMBOLS, ANTENNAS, FFT, dev, seed=2)
+    bias = bias + 0.5
+    for variant in PROBE_VARIANTS:
+        name = "io_manual" if variant.startswith("manual") else "io_auto"
+        for compute in (0, 2):
+            got = dma_probe.io_probe(pre[0], pim[0], bias, wmat, variant=variant,
+                                     ts=PROBE_TS, compute=compute)
+            want = dma_probe.io_probe_plain(pre[0], pim[0], bias, wmat, compute)
+            torch.cuda.synchronize()
+            check(name, f"{variant} compute={compute}",
+                  [(g.cpu().numpy(), w.cpu().numpy()) for g, w in zip(got, want)])
+    del pre, pim
 
     # -- 4. the main path through the port ----------------------------------
     cfg = FrameConfig(num_antennas=ANTENNAS, fft_size=FFT, cyclic_prefix=CP,
@@ -139,26 +214,105 @@ def main() -> int:
     pilot = np.exp(2j * np.pi * rng.random(cfg.num_subcarriers)).astype(np.complex64)
     rx_frame = sim.ChannelModel(ANTENNAS, FFT, num_taps=16, snr_db=25.0, seed=9).apply(
         sim.make_tx_frame(data, pilot, CP), CP)
+    gold = golden.demod_frame(rx_frame, pilot, CP)
     rx = UplinkReceiver(cfg, pilot, pipeline="fused", device=dev)
     frame_dev = CArray.from_numpy(rx_frame, dev)
+
+    def check_output(label, out, need):
+        evm = sim.evm_db(np.fft.fftshift(out, axes=-1), data)
+        rel = max_rel(out, gold)
+        print(f"{label}: shape {out.shape}  EVM {evm:.2f} dB  max-rel vs golden "
+              f"{rel:.3e}  launches {need}")
+        require(out.shape == (SYMBOLS - 1, FFT - 1) and np.all(np.isfinite(out)),
+                f"{label}: bad output, shape {out.shape}")
+        require(evm < EVM_MAX_DB, f"{label}: EVM {evm:.2f} dB >= {EVM_MAX_DB}")
+        require(rel < GOLDEN_TOL, f"{label}: max-rel vs golden {rel:.3e} >= {GOLDEN_TOL}")
+        for name, n in need.items():
+            require(n > 0, f"kernel {name} was not launched on the {label}")
+
     torch.cuda.synchronize()
-    pipe.reset_launch_counts()
+    reset_counts()
     out_dev = rx.demod_frame(frame_dev)
     torch.cuda.synchronize()
-    launches = dict(pipe.launch_counts)
-    out = out_dev.to_numpy()
-    evm = sim.evm_db(np.fft.fftshift(out, axes=-1), data)
-    rel = max_rel(out, golden.demod_frame(rx_frame, pilot, CP))
-    print(f"main path: shape {out.shape}  EVM {evm:.2f} dB  max-rel vs golden "
-          f"{rel:.3e}  launches {launches}")
-    require(out.shape == (SYMBOLS - 1, FFT - 1) and np.all(np.isfinite(out)),
-            f"bad output: shape {out.shape}")
-    require(evm < EVM_MAX_DB, f"EVM {evm:.2f} dB >= {EVM_MAX_DB}")
-    require(rel < GOLDEN_TOL, f"max-rel vs golden {rel:.3e} >= {GOLDEN_TOL}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    launches = counts()
+    whole = out_dev.to_numpy()
+    check_output("main path", whole, {k: launches[k] for k in ("pilot_ls", "fft_mrc")})
 
-    # -- 5. timing ----------------------------------------------------------
+    # -- 5. the split-phase path ---------------------------------------------
+    reset_counts()
+    split = rx.demod_data(frame_dev[1:], *rx.estimate_channel(frame_dev[0]))
+    torch.cuda.synchronize()
+    split_counts = counts()
+    launches["mrc_demod"] = split_counts["mrc_demod"]
+    check_output("split-phase path", split.to_numpy(), {"mrc_demod": launches["mrc_demod"]})
+
+    # -- 6. the streaming path -----------------------------------------------
+    stream_launches = {}
+    for body in ("composed", "fused"):
+        sd = StreamingDemodulator(cfg, pilot, pipeline=body, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        sd.push_pilot(frame_dev[0])
+        rows = np.stack([sd.push_symbol(frame_dev[i], slot=i).to_numpy()
+                         for i in range(1, SYMBOLS)])
+        torch.cuda.synchronize()
+        stream_launches[body] = counts()
+        rel = max_rel(rows, whole)
+        ev_us, host_us = [], []
+        for _ in range(STREAM_FRAMES):
+            sd.push_pilot(frame_dev[0])
+            for i in range(1, SYMBOLS):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                sd.push_symbol(frame_dev[i], slot=i)
+                end.record()
+                torch.cuda.synchronize()
+                host_us.append((time.perf_counter() - t0) * 1e6)
+                ev_us.append(start.elapsed_time(end) * 1e3)
+        print(f"streaming {body}: {SYMBOLS - 1} symbols, max-rel vs demod_frame "
+              f"{rel:.3e}, launches {stream_launches[body]}")
+        print(f"streaming {body} per-symbol latency ({len(ev_us)} symbols, device-resident "
+              f"16x1024 cp {CP}): CUDA events p50 {np.percentile(ev_us, 50):.2f} us "
+              f"p99 {np.percentile(ev_us, 99):.2f} us; host clock p50 "
+              f"{np.percentile(host_us, 50):.2f} us p99 {np.percentile(host_us, 99):.2f} us"
+              f"  [{card}]")
+        require(rel < KERNEL_TOL, f"streaming {body}: max-rel {rel:.3e} >= {KERNEL_TOL}")
+    for name in ("pilot_ls", "fft_mrc"):
+        require(stream_launches["fused"][name] > 0,
+                f"kernel {name} was not launched on the fused streaming path")
+
+    # -- 7. the probe path: the io floor ----------------------------------------
+    yre, yim, bias, wmat = dma_probe.make_frames(PROBE_FRAMES, SYMBOLS, ANTENNAS, FFT, dev)
+    sre, sim_ = dma_probe.as_symbols(yre), dma_probe.as_symbols(yim)
+    b_in, b_out = dma_probe.frame_bytes(SYMBOLS, ANTENNAS, FFT)
+    probe_s = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for compute in (0, 2):
+        for variant in PROBE_VARIANTS:
+            t = dma_probe.time_per_frame(
+                lambda: dma_probe.io_probe(sre, sim_, bias, wmat, variant=variant,
+                                           ts=PROBE_TS, compute=compute),
+                PROBE_FRAMES, passes=10, reps=3)
+            probe_s[variant, compute] = t
+            print(f"probe {variant:9s} compute={compute}: {t * 1e6:8.2f} us/frame  "
+                  f"({b_in / t / 1e9:7.1f} GB/s in, {(b_in + b_out) / t / 1e9:7.1f} GB/s "
+                  f"in+out)  [{card}]")
+    probe_counts = counts()
+    launches["io_auto"], launches["io_manual"] = probe_counts["io_auto"], probe_counts["io_manual"]
+    floor_variant = min(PROBE_VARIANTS, key=lambda v: probe_s[v, 0])
+    io_floor = (b_in + b_out) / probe_s[floor_variant, 0]
+    print(f"io floor (measured): {io_floor / 1e9:.1f} GB/s in+out, "
+          f"{b_in / probe_s[floor_variant, 0] / 1e9:.1f} GB/s in, by {floor_variant} over "
+          f"{PROBE_FRAMES} frames of {ANTENNAS}x{FFT}x{SYMBOLS} f32 "
+          f"({io_floor / HBM_BYTES_PER_S:.1%} of 3.35 TB/s)  [{card}]")
+    for name in ("io_auto", "io_manual"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the probe path")
+
+    # -- 8. timing ----------------------------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,47 +342,82 @@ def main() -> int:
         return {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
-    def measure(kernel_fn, plain_fn, n: int):
+    def measure(kernel_fn, plain_fn, n: int, library_fn=None):
         """Events in the order plain, kernel, kernel, plain (mean of each
-        pair), then the profiler's device time of each."""
+        pair), then the profiler's device time of each (and of the library
+        call, where there is one)."""
         p1, k1, k2, p2 = (call_ms(f, n) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
         k_dev, p_dev = device_ms(kernel_fn, n), device_ms(plain_fn, n)
-        return {"kernel_call": (k1 + k2) / 2, "plain_call": (p1 + p2) / 2,
-                "kernel_dev": sum(k_dev.values()), "plain_dev": sum(p_dev.values()),
-                "kernel_split": k_dev, "plain_split": p_dev}
+        t = {"kernel_call": (k1 + k2) / 2, "plain_call": (p1 + p2) / 2,
+             "kernel_dev": sum(k_dev.values()), "plain_dev": sum(p_dev.values()),
+             "kernel_split": k_dev, "plain_split": p_dev}
+        if library_fn is not None:
+            t["library_call"] = call_ms(library_fn, n)
+            t["library_dev"] = sum(device_ms(library_fn, n).values())
+        return t
 
     def report(label: str, t: dict, frames: int = 1) -> None:
         samples = frames * SYMBOLS * ANTENNAS * FFT
         for who in ("kernel", "plain"):
-            call, dev = t[f"{who}_call"], t[f"{who}_dev"]
-            print(f"time {label} {who}: device {dev * 1e3 / frames:.2f} us/frame "
-                  f"({samples / (dev * 1e-3) if dev else 0:.4g} samples/s), "
+            call, dev_t = t[f"{who}_call"], t[f"{who}_dev"]
+            print(f"time {label} {who}: device {dev_t * 1e3 / frames:.2f} us/frame "
+                  f"({samples / (dev_t * 1e-3) if dev_t else 0:.4g} samples/s), "
                   f"per call {call * 1e3 / frames:.2f} us/frame "
                   f"({samples / (call * 1e-3):.4g} samples/s)  [{card}]")
             for key, ms in sorted(t[f"{who}_split"].items(), key=lambda kv: -kv[1])[:4]:
-                print(f"    {ms / dev if dev else 0:6.1%}  {ms * 1e3:9.2f} us/call  {key[:90]}")
+                print(f"    {ms / dev_t if dev_t else 0:6.1%}  {ms * 1e3:9.2f} us/call  {key[:90]}")
+        if "library_call" in t:
+            print(f"time {label} library: device {t['library_dev'] * 1e3 / frames:.2f} "
+                  f"us/frame, per call {t['library_call'] * 1e3 / frames:.2f} us/frame  [{card}]")
 
     y = frame_dev[..., CP:]
     x_full = rx.x_full
     h, inv = pipe.estimate_pilot_plain(y[0], x_full)
+    hconj, hsqrd = rx.estimate_channel(frame_dev[0])
+    pilot_c = torch.complex(y[0].re.contiguous(), y[0].im.contiguous())
+    data_c = torch.complex(y[1:].re.contiguous(), y[1:].im.contiguous())
     times = {
         "pilot_ls": measure(lambda: pipe.estimate_pilot_fused(y[0], x_full),
-                            lambda: pipe.estimate_pilot_plain(y[0], x_full), 200),
+                            lambda: pipe.estimate_pilot_plain(y[0], x_full), 200,
+                            lambda: torch.fft.fft(pilot_c, dim=-1)),
         "fft_mrc": measure(lambda: pipe.fused_pipeline(y[1:], h, inv),
-                           lambda: pipe.fused_pipeline_plain(y[1:], h, inv), 100),
+                           lambda: pipe.fused_pipeline_plain(y[1:], h, inv), 100,
+                           lambda: torch.fft.fft(data_c, dim=-1)),
+        "mrc_demod": measure(lambda: fused_mrc.fused_demod(y[1:], hconj, hsqrd),
+                             lambda: fused_mrc.fused_demod_plain(y[1:], hconj, hsqrd), 100,
+                             lambda: torch.fft.fft(data_c, dim=-1)),
     }
+    del pilot_c, data_c
     for name, t in times.items():
         report(f"{name} (one frame, f32, cp {CP})", t)
-    # The per-kernel "ms" below is device time; where the profiler saw no
-    # device activity it falls back to the event time per call.
-    kernel_ms = {name: (t["kernel_dev"] or t["kernel_call"], t["plain_dev"] or t["plain_call"])
-                 for name, t in times.items()}
+    sd = StreamingDemodulator(cfg, pilot, pipeline="fused", device=dev)
+    sd.push_pilot(frame_dev[0])
+    split = device_ms(lambda: sd.push_symbol(frame_dev[1], slot=1), 100)
+    print(f"time streaming fused push_symbol: device {sum(split.values()) * 1e3:.2f} us/symbol "
+          "(" + ", ".join(f"{k[:40]} {v * 1e3:.2f} us" for k, v in split.items())
+          + f")  [{card}]")
+    # "ms" below is device time; where the profiler saw no device activity
+    # it is the event time per call.
+    ms = {name: (t["kernel_dev"] or t["kernel_call"], t["plain_dev"] or t["plain_call"],
+                 t["library_dev"] or t["library_call"]) for name, t in times.items()}
     if not all(t["kernel_dev"] for t in times.values()):
         print("note: the profiler reported no device time; ms are CUDA-event times per call")
 
+    # The probes: per frame over the 20-frame batch (one launch a pass).
+    y2 = torch.stack([sre, sim_])
+    manual_variant = min(PROBE_VARIANTS[1:], key=lambda v: probe_s[v, 0])
+    plain_s = dma_probe.time_per_frame(
+        lambda: dma_probe.io_probe_plain(sre, sim_, bias, wmat), PROBE_FRAMES, 10, 3)
+    library_s = dma_probe.time_per_frame(lambda: torch.sum(y2, dim=2), PROBE_FRAMES, 10, 3)
+    del y2, yre, yim, sre, sim_
+    ms["io_auto"] = (probe_s["auto", 0] * 1e3, plain_s * 1e3, library_s * 1e3)
+    ms["io_manual"] = (probe_s[manual_variant, 0] * 1e3, plain_s * 1e3, library_s * 1e3)
+    print(f"time io probes (per frame, 20 frames, compute 0): plain {plain_s * 1e6:.2f} us, "
+          f"library torch.sum {library_s * 1e6:.2f} us  [{card}]")
+
     # demod_capture: bench.py's default frames (seed 0, sc16, CP stripped on host).
     rng = np.random.default_rng(0)
-    pilot = np.exp(2j * np.pi * rng.random(FFT - 1)).astype(np.complex64)
+    cap_pilot = np.exp(2j * np.pi * rng.random(FFT - 1)).astype(np.complex64)
     shape = (CAPTURE_FRAMES, SYMBOLS, ANTENNAS, FFT + CP)
     frames = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     payload = frames[..., CP:]
@@ -237,7 +426,7 @@ def main() -> int:
     del frames, payload
     rx_cap = UplinkReceiver(FrameConfig(num_antennas=ANTENNAS, fft_size=FFT,
                                         cyclic_prefix=0, frame_len=SYMBOLS),
-                            pilot, device=dev)
+                            cap_pilot, device=dev)
 
     def capture_plain():
         h, inv = pipe.estimate_pilot_plain(cap[:, 0], rx_cap.x_full)
@@ -249,14 +438,43 @@ def main() -> int:
     report(f"demod_capture ({CAPTURE_FRAMES} sc16 frames, cp stripped on host)",
            measure(lambda: rx_cap.demod_capture(cap), capture_plain, 10), CAPTURE_FRAMES)
 
+    # Work of each kernel at the timed shapes (f32 in, one frame; the probes
+    # one frame of 101 symbols): each input read once, each output written once.
+    a, f, s = ANTENNAS, FFT, SYMBOLS - 1
+    work = {
+        "pilot_ls": (a * f * 8 + f * 8 + a * f * 8 + f * 4,
+                     fft_flops(a, f) + 15.0 * a * f),
+        "fft_mrc": (s * a * f * 8 + a * f * 8 + f * 4 + s * (f - 1) * 8,
+                    fft_flops(s * a, f) + 8.0 * s * a * f + 2.0 * s * f),
+        "mrc_demod": (s * a * f * 8 + a * f * 8 + f * 4 + s * f * 8,
+                      fft_flops(s * a, f) + 8.0 * s * a * f + 3.0 * s * f),
+        "io_auto": (b_in + f * 4 + b_out, 2.0 * SYMBOLS * a * f),
+    }
+    work["io_manual"] = work["io_auto"]
+    records = []
+    for name, (src, replaces) in KERNELS.items():
+        nbytes, flops = work[name]
+        b_ms, b_by = bound_ms(nbytes, flops)
+        k_ms, p_ms, l_ms = ms[name]
+        rec = {"name": name, "route": "cuda", "source": f"ofdm_ls_mrc_tpu_torch/csrc/{src}",
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs_abs[name], "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+               "floor_ms": nbytes / io_floor * 1e3}
+        if name == "io_manual":
+            rec["variant"] = manual_variant
+        if name in ("pilot_ls", "fft_mrc"):
+            rec["launches_streaming"] = stream_launches["fused"][name]
+        records.append(rec)
+        print(f"bound {name}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP -> "
+              f"{b_ms * 1e3:.2f} us ({b_by}) at the published peaks, "
+              f"{nbytes / io_floor * 1e6:.2f} us at the measured io floor; kernel "
+              f"{k_ms * 1e3:.2f} us  [{card}]")
+
     require("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"ofdm_ls_mrc_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": max_abs[name], "ms": kernel_ms[name][0],
-         "plain_ms": kernel_ms[name][1]}
-        for name in ("pilot_ls", "fft_mrc")]}))
+    require(not any(m == "ofdm_ls_mrc_tpu" or m.startswith("ofdm_ls_mrc_tpu.")
+                    for m in sys.modules), "the JAX package was imported")
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

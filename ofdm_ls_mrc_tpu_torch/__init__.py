@@ -2,22 +2,28 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``ofdm_ls_mrc_tpu`` (JAX on TPU), which stays beside it as the
-reference.  The NumPy-only modules of the reference are shared, not copied:
-``FrameConfig``, the golden oracle (``golden``) and the channel simulator
-(``sim``); importing them pulls in no JAX.
+reference.  The port imports nothing of that package: it keeps its own
+copies of the NumPy-only modules it needs (``config.FrameConfig``, the
+golden oracle ``golden`` and the channel simulator ``sim``), and the tests
+hold each copy equal to its original.  Entry points compute on the card
+(``device="cuda"``) unless the caller asks for the CPU.
 
 Layers (bottom-up):
   csrc/     CUDA C++ kernels: block FFT (fft.cuh), pilot LS (pilot_ls.cu),
-            FFT + MRC + reference-order store (fft_mrc.cu)
+            FFT + MRC + reference-order store (fft_mrc.cu), split-phase
+            FFT + MRC (mrc_demod.cu), input-delivery probes (io_probe.cu)
   kernels/  nvcc build of csrc/ into a ctypes-loaded library, at first use
-  ops/      planar complex tensors, FFT, LS, MRC, the fused path's wrappers
-  models/   UplinkReceiver (nn.Module)
+  ops/      planar complex tensors, FFT, LS, MRC, the kernels' wrappers
+  models/   UplinkReceiver (nn.Module), StreamingDemodulator
+  io/       estimate checkpoints (the JAX package's .npz format)
+  utils/    PhaseTimer
+  tools/    dma_probe (the io floor of the card)
   convert   reference (TPU-layout) state -> port state
 """
 
-from ofdm_ls_mrc_tpu import golden, sim
-from ofdm_ls_mrc_tpu.config import FrameConfig
+from . import golden, sim
+from .config import FrameConfig
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = ["FrameConfig", "golden", "sim", "__version__"]

@@ -12,6 +12,8 @@ for every size the fused path supports):
   holds true frequency n1*k2 + k1;
 * pilot-kernel layout (``estimate_pilot_fused`` output, [.., n1, n2]):
   position (p1, k2) holds true frequency n1*k2 + bitrev(p1).
+
+The functions put their tensors on the card unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .ops.cplx import CArray, DeviceLike
+from .ops.cplx import CArray, DeviceLike, resolve_device
 
 
 def _split(f: int) -> Tuple[int, int]:
@@ -61,17 +63,19 @@ def _to_natural(x: np.ndarray, true: np.ndarray) -> np.ndarray:
     return out
 
 
-def pilot_from_reference(x_full_perm: np.ndarray, device: DeviceLike = "cpu") -> CArray:
+def pilot_from_reference(x_full_perm: np.ndarray, device: DeviceLike = "cuda") -> CArray:
     """[F] complex padded pilot in fastpath permuted order -> [F] natural
     order (the ``ls.pad_pilot`` layout)."""
+    device = resolve_device(device, "pilot_from_reference")
     x = np.asarray(x_full_perm)
     return CArray.from_numpy(_to_natural(x, perm_true_frequency(x.shape[-1])), device)
 
 
 def estimate_from_reference(h_re: np.ndarray, h_im: np.ndarray, inv: np.ndarray,
-                            device: DeviceLike = "cpu") -> Tuple[CArray, torch.Tensor]:
+                            device: DeviceLike = "cuda") -> Tuple[CArray, torch.Tensor]:
     """Pilot-kernel outputs (h [A, n1, n2] planes, inv [n1, n2]) ->
     (h [A, F], inv [F]) in natural order."""
+    device = resolve_device(device, "estimate_from_reference")
     h_re, h_im, inv = (np.asarray(v, dtype=np.float32) for v in (h_re, h_im, inv))
     a = h_re.shape[0]
     f = inv.size
@@ -79,3 +83,17 @@ def estimate_from_reference(h_re: np.ndarray, h_im: np.ndarray, inv: np.ndarray,
     h = _to_natural(h_re.reshape(a, f), true) + 1j * _to_natural(h_im.reshape(a, f), true)
     inv_nat = _to_natural(inv.reshape(f), true)
     return CArray.from_numpy(h, device), torch.from_numpy(inv_nat).to(device)
+
+
+def streaming_state_from_reference(h_re: np.ndarray, h_im: np.ndarray,
+                                   hsqinv: np.ndarray, device: DeviceLike = "cuda"
+                                   ) -> Tuple[CArray, torch.Tensor]:
+    """The JAX fused ``StreamingDemodulator``'s estimate (h [A, F] planes,
+    unconjugated, and 1/sum_a |h|^2 [F], both in fastpath permuted order) ->
+    the port's fused streaming state (h [A, F], inv [F]) in natural order."""
+    device = resolve_device(device, "streaming_state_from_reference")
+    h_re, h_im, hsqinv = (np.asarray(v, dtype=np.float32) for v in (h_re, h_im, hsqinv))
+    true = perm_true_frequency(hsqinv.shape[-1])
+    h = _to_natural(h_re, true) + 1j * _to_natural(h_im, true)
+    return (CArray.from_numpy(h, device),
+            torch.from_numpy(_to_natural(hsqinv, true)).to(device))

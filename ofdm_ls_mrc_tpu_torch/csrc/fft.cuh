@@ -1,6 +1,7 @@
 // Block-level F-point complex FFT in shared memory (radix-2 Stockham).
 //
-// Shared by pilot_ls.cu and fft_mrc.cu.  One thread block transforms one
+// Shared by pilot_ls.cu, fft_mrc.cu and mrc_demod.cu.  A group of NT
+// threads (the whole block of kThreads in the first two) transforms one
 // row of F complex samples held in shared memory as float2 (re, im):
 // log2(F) radix-2 Stockham stages ping-pong between two F-long buffers, so
 // the output lands in natural frequency order with no bit-reversal pass.
@@ -22,7 +23,7 @@
 
 namespace ofdm {
 
-constexpr int kThreads = 256;  // threads per block of both kernels
+constexpr int kThreads = 256;  // threads per block of every kernel
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -36,27 +37,39 @@ __device__ __forceinline__ void load_twiddles(float2* __restrict__ tw_s,
 }
 
 // Loads one row of F samples from planar re/im device memory into a,
-// scaled by `scale` (1/32767 for int16 sc16 planes, 1 for float32).
-template <int F, typename T>
-__device__ __forceinline__ void load_row(float2* __restrict__ a,
-                                         const T* __restrict__ re,
-                                         const T* __restrict__ im, float scale) {
-  for (int i = threadIdx.x; i < F; i += kThreads) {
+// scaled by `scale` (1/32767 for int16 sc16 planes, 1 for float32).  The
+// NT threads of a group share the row; `lane` is the thread's index in it.
+template <int F, int NT, typename T>
+__device__ __forceinline__ void load_row_lanes(float2* __restrict__ a,
+                                               const T* __restrict__ re,
+                                               const T* __restrict__ im,
+                                               float scale, int lane) {
+  for (int i = lane; i < F; i += NT) {
     a[i] = make_float2(static_cast<float>(re[i]) * scale,
                        static_cast<float>(im[i]) * scale);
   }
 }
 
-// Transforms the row in a, using b as scratch.  Call with a fully written
-// and synchronised; returns the buffer (a or b) that holds the result,
-// synchronised and ready to read.
-template <int F>
-__device__ __forceinline__ float2* stockham_fft(float2* a, float2* b,
-                                                const float2* __restrict__ tw_s) {
+template <int F, typename T>
+__device__ __forceinline__ void load_row(float2* __restrict__ a,
+                                         const T* __restrict__ re,
+                                         const T* __restrict__ im, float scale) {
+  load_row_lanes<F, kThreads, T>(a, re, im, scale, threadIdx.x);
+}
+
+// Transforms the row in a, using b as scratch, with the NT threads of a
+// group.  Every thread of the block calls it (it holds block barriers), so
+// groups of one block transform their rows side by side.  Call with a
+// fully written and synchronised; returns the buffer (a or b) that holds
+// the result, synchronised and ready to read.
+template <int F, int NT>
+__device__ __forceinline__ float2* stockham_fft_lanes(float2* a, float2* b,
+                                                      const float2* __restrict__ tw_s,
+                                                      int lane) {
   int tstride = F / 2;
 #pragma unroll
   for (int p = 1; p < F; p <<= 1) {
-    for (int i = threadIdx.x; i < F / 2; i += kThreads) {
+    for (int i = lane; i < F / 2; i += NT) {
       const int k = i & (p - 1);
       const float2 u0 = a[i];
       const float2 u1 = cmul(a[i + F / 2], tw_s[k * tstride]);
@@ -71,6 +84,12 @@ __device__ __forceinline__ float2* stockham_fft(float2* a, float2* b,
     tstride >>= 1;
   }
   return a;
+}
+
+template <int F>
+__device__ __forceinline__ float2* stockham_fft(float2* a, float2* b,
+                                                const float2* __restrict__ tw_s) {
+  return stockham_fft_lanes<F, kThreads>(a, b, tw_s, threadIdx.x);
 }
 
 // Dynamic shared memory of one block: two F-long row buffers + F/2 twiddles.

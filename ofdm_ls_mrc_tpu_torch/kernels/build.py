@@ -1,14 +1,16 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded through ``ctypes``: a build takes
-seconds, where an extension that includes PyTorch's headers takes minutes.
-The library lands in ``ofdm_ls_mrc_tpu_torch/_build/`` under a name that
-carries a hash of every ``csrc/`` file, so an edited source rebuilds.
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one process per
+source, all started together, and link into one shared library with a
+plain C interface, loaded through ``ctypes``: a build takes seconds, where
+an extension that includes PyTorch's headers takes minutes.  The library
+lands in ``ofdm_ls_mrc_tpu_torch/_build/`` under a name that carries a hash
+of every ``csrc/`` file, so an edited source rebuilds.
 
 Nothing here runs at import: the first CUDA call of a kernel wrapper
-(``ops/pipeline.py``) calls ``load_library``, which builds when the library
-for the current sources is missing.  A failed build raises.
+(``ops/pipeline.py``, ``ops/fused_mrc.py``, ``tools/dma_probe.py``) calls
+``load_library``, which builds when the library for the current sources is
+missing.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("pilot_ls.cu", "fft_mrc.cu")
+SOURCES = ("pilot_ls.cu", "fft_mrc.cu", "mrc_demod.cu", "io_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -41,6 +43,10 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P),
     "ofdm_fft_mrc": (_P, _P, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P),
+    "ofdm_mrc_demod": (_P, _P, _I, _LL, _LL, _F, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P),
+    "ofdm_io_auto": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P),
+    "ofdm_io_manual": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -69,27 +75,38 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds):
+    """Run the commands side by side; once every one has ended, raise with
+    the output of each that failed.  Returns their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}"
+              for cmd, proc, text in zip(cmds, procs, outs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build_library(verbose: bool = False) -> Path:
-    """Compile csrc/ into the library for the current sources.  The output
-    is written under a temporary name and renamed, so a concurrent or
-    interrupted build never leaves a half-written library behind."""
+    """Compile csrc/ into the library for the current sources: one nvcc per
+    source, all at once, then one link.  Objects and the library are
+    written under temporary names and the library renamed into place, so a
+    concurrent or interrupted build never leaves a half-written library
+    behind."""
     out = library_path()
     BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / (Path(src).stem + ".o")) for src in SOURCES]
+        outs = _run_all([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                          "-c", "-o", obj, str(CSRC_DIR / src)]
+                         for src, obj in zip(SOURCES, objs)])
         if verbose:
-            print(proc.stdout + proc.stderr, end="")
+            print("".join(outs), end="")
+        tmp = str(Path(tmpdir) / out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

@@ -1,5 +1,6 @@
 """Receiver models of the port."""
 
+from .streaming import StreamingDemodulator
 from .uplink import UplinkReceiver
 
-__all__ = ["UplinkReceiver"]
+__all__ = ["StreamingDemodulator", "UplinkReceiver"]

@@ -1,12 +1,14 @@
 """Uplink receiver: the whole-frame LS + MRC pipeline (counterpart of
 ``ofdm_ls_mrc_tpu.models.uplink``).
 
-``pipeline="fused"`` runs the two hand-written CUDA kernels of
-``ops/pipeline.py`` (their plain versions for CPU tensors);
-``pipeline="composed"`` runs the plain op composition (``torch.fft`` + LS +
-MRC), the port's correctness anchor.  The split-phase API
-(``estimate_channel``/``demod_data``) always uses the composed ops, as in
-the reference.
+``pipeline="fused"`` runs the hand-written CUDA kernels (their plain
+versions for CPU tensors): the whole-frame path the two of
+``ops/pipeline.py``, the split-phase ``demod_data`` the one of
+``ops/fused_mrc.py``.  ``pipeline="composed"`` runs the plain op
+composition (``torch.fft`` + LS + MRC), the port's correctness anchor.  The
+split-phase ``estimate_channel`` uses torch ops under both pipelines, as the
+reference does, so estimates are interchangeable across frames and
+pipelines.
 
 All math is planar (re, im): inputs are host complex arrays or ``CArray``s
 already on the receiver's device, outputs are ``CArray``s.
@@ -20,16 +22,26 @@ import numpy as np
 import torch
 from torch import nn
 
-from ofdm_ls_mrc_tpu.config import FrameConfig
-
+from ..config import FrameConfig
 from ..ops import fft as fft_ops
+from ..ops import fused_mrc
 from ..ops import ls as ls_ops
 from ..ops import mrc as mrc_ops
 from ..ops import pipeline as pipe
-from ..ops.cplx import CArray, DeviceLike
+from ..ops.cplx import CArray, DeviceLike, resolve_device
 from ..ops.modulate import drop_cyclic_prefix
 
 FrameLike = Union[np.ndarray, CArray]
+
+
+def to_device(x: FrameLike, device: torch.device) -> CArray:
+    """A host complex array as planar float32 on ``device``; a CArray passes
+    through when it is already there and raises when it is not."""
+    if not isinstance(x, CArray):
+        return CArray.from_numpy(x, device)
+    if x.device != device:
+        raise ValueError(f"input is on {x.device}, expected {device}")
+    return x
 
 
 def demod_frame_fn(frame: CArray, x_full: CArray, *, cp: int) -> CArray:
@@ -56,7 +68,7 @@ class UplinkReceiver(nn.Module):
     """LS + MRC uplink receiver for one antenna-array stream.
 
     Usage:
-      rx = UplinkReceiver(cfg, pilot_x, device="cuda")
+      rx = UplinkReceiver(cfg, pilot_x)        # on the card; device="cpu" asks for the CPU
       out = rx.demod_frame(frame)              # CArray [S-1, F-1]
       hconj, hsqrd = rx.estimate_channel(frame[0])
       out = rx.demod_data(frame[1:], hconj, hsqrd)
@@ -68,11 +80,12 @@ class UplinkReceiver(nn.Module):
 
     def __init__(self, cfg: FrameConfig, pilot_x: np.ndarray, *,
                  pipeline: str = "fused", exact: bool = True,
-                 device: DeviceLike = "cpu"):
+                 device: DeviceLike = "cuda"):
         """pipeline: 'fused' (the CUDA kernels) or 'composed' (plain ops).
         'fast' is the reference's MXU Karatsuba path, not ported.
         exact: only True; the bf16 speed mode is not ported yet.
-        device: where the receiver computes; 'cuda' needs a CUDA device."""
+        device: where the receiver computes, the card unless 'cpu' is asked
+        for; without a CUDA device the default raises."""
         super().__init__()
         cfg.validate()
         if pipeline == "fast":
@@ -93,10 +106,7 @@ class UplinkReceiver(nn.Module):
         if pilot_x.shape[-1] != cfg.num_subcarriers:
             raise ValueError(f"pilot has {pilot_x.shape[-1]} bins, config wants "
                              f"{cfg.num_subcarriers}")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("UplinkReceiver(device='cuda'): no CUDA device "
-                               "is available")
+        device = resolve_device(device, "UplinkReceiver")
         self.cfg = cfg
         self.pipeline = pipeline
         self.exact = exact
@@ -113,11 +123,7 @@ class UplinkReceiver(nn.Module):
         return CArray(self.x_full_re, self.x_full_im)
 
     def _as_carray(self, x: FrameLike) -> CArray:
-        if not isinstance(x, CArray):
-            return CArray.from_numpy(x, self.device)
-        if x.device != self.device:
-            raise ValueError(f"input is on {x.device}, receiver on {self.device}")
-        return x
+        return to_device(x, self.device)
 
     # -- whole-frame path ----------------------------------------------------
     def demod_frame(self, frame: FrameLike) -> CArray:
@@ -145,9 +151,15 @@ class UplinkReceiver(nn.Module):
                            cp=self.cfg.cyclic_prefix)
 
     def demod_data(self, data: FrameLike, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
-        """[S, A, F+cp] data + estimates -> [S, F-1]."""
-        return demod_data_fn(self._as_carray(data), hconj, hsqrd,
-                             cp=self.cfg.cyclic_prefix)
+        """[S, A, F+cp] data + estimates -> [S, F-1].  Under 'fused' one
+        launch of ``csrc/mrc_demod.cu`` reads the rows in place, then
+        ``mrc.finalize``."""
+        data = self._as_carray(data)
+        cp = self.cfg.cyclic_prefix
+        if self.pipeline == "fused":
+            eq = fused_mrc.fused_demod(drop_cyclic_prefix(data, cp), hconj, hsqrd)
+            return mrc_ops.finalize(eq)
+        return demod_data_fn(data, hconj, hsqrd, cp=cp)
 
     # -- long-capture path ---------------------------------------------------
     def demod_capture(self, frames: FrameLike) -> CArray:

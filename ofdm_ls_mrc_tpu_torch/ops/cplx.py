@@ -17,6 +17,16 @@ import torch
 DeviceLike = Union[str, torch.device]
 
 
+def resolve_device(device: DeviceLike, who: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where none is available
+    raises (the port's entry points default to the card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): no CUDA device is available; "
+                           "pass device='cpu' to compute on the CPU")
+    return device
+
+
 class CArray:
     """A complex tensor as planar (re, im) components.
 

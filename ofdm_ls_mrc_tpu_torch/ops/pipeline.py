@@ -31,8 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ofdm_ls_mrc_tpu.golden.io import SC16_FULL_SCALE
-
+from ..golden.io import SC16_FULL_SCALE
 from ..kernels import build
 from . import fft as fft_ops
 from .cplx import CArray, cdiv

@@ -5,9 +5,9 @@ one (and nvcc), run them without JAX, whose conftest is not needed here:
 
   python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerance: max-rel 2e-5, both sides being float32 FFTs summed in another
-order; sum_a|h|^2 is compared as such (inv = its reciprocal peaks at the
-weakest bin).
+Tolerance: max-rel 2e-5, both sides being float32 FFTs (or sums) taken in
+another order; sum_a|h|^2 is compared as such (inv = its reciprocal peaks at
+the weakest bin).
 """
 
 import numpy as np
@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from ofdm_ls_mrc_tpu_torch import FrameConfig, golden, sim
-from ofdm_ls_mrc_tpu_torch.models import UplinkReceiver
-from ofdm_ls_mrc_tpu_torch.ops import ls
+from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
+from ofdm_ls_mrc_tpu_torch.ops import fused_mrc, ls
 from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
 from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+from ofdm_ls_mrc_tpu_torch.tools import dma_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +121,101 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     h, inv = pipe.estimate_pilot_plain(frame[0], x_full)
     with pytest.raises(ValueError):
         pipe.fused_pipeline(frame[1:], h, inv[:-1])
+
+
+# (F, antennas, data symbols): the BASELINE 64-bin geometries, a ragged last
+# block of 8 symbols at F = 64, the main path's width, and the largest F.
+DEMOD_GEOMETRIES = [(64, 1, 9), (64, 4, 17), (128, 3, 10), (256, 5, 7),
+                    (1024, 16, 100), (4096, 2, 3)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 72])
+@pytest.mark.parametrize("f,a,s", DEMOD_GEOMETRIES)
+def test_mrc_demod_kernel_matches_plain(dev, f, a, s, cp, dtype):
+    frame, pilot = frame_on(dev, f, a, s + 1, cp, dtype)
+    rx = UplinkReceiver(FrameConfig(num_antennas=a, fft_size=f, cyclic_prefix=cp,
+                                    frame_len=s + 1), pilot, pipeline="composed", device=dev)
+    hconj, hsqrd = rx.estimate_channel(frame[0])
+    y = frame[1:, :, cp:]
+    before = fused_mrc.launch_counts["mrc_demod"]
+    got = fused_mrc.fused_demod(y, hconj, hsqrd)
+    torch.cuda.synchronize()
+    assert fused_mrc.launch_counts["mrc_demod"] == before + 1
+    want = fused_mrc.fused_demod_plain(y, hconj, hsqrd).to_numpy()
+    assert got.shape == (s, f)
+    # The DC bin is meaningless (hconj zeroed there); compare bins 1..F-1.
+    assert max_rel(got.to_numpy()[:, 1:], want[:, 1:]) < TOL
+
+
+def test_split_phase_on_card_matches_golden(dev):
+    rng = np.random.default_rng(7)
+    cfg = FrameConfig(num_antennas=16, fft_size=1024, cyclic_prefix=72, frame_len=101)
+    data, _ = sim.random_symbols(rng, (cfg.num_data_symbols, cfg.num_subcarriers), "16qam")
+    pilot = np.exp(2j * np.pi * rng.random(cfg.num_subcarriers)).astype(np.complex64)
+    rx_frame = sim.ChannelModel(16, 1024, num_taps=16, snr_db=25.0, seed=9).apply(
+        sim.make_tx_frame(data, pilot, 72), 72)
+    rx = UplinkReceiver(cfg, pilot, device=dev)
+    frame = CArray.from_numpy(rx_frame, dev)
+    fused_mrc.reset_launch_counts()
+    out = rx.demod_data(frame[1:], *rx.estimate_channel(frame[0])).to_numpy()
+    assert fused_mrc.launch_counts["mrc_demod"] == 1
+    assert max_rel(out, golden.demod_frame(rx_frame, pilot, 72)) < 5e-5
+    assert sim.evm_db(np.fft.fftshift(out, axes=-1), data) < -30.0
+
+
+@pytest.mark.parametrize("pipeline", ["composed", "fused"])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_streaming_on_card_matches_demod_frame(dev, pipeline, dtype):
+    frame, pilot = frame_on(dev, 1024, 16, 11, 72, dtype)
+    cfg = FrameConfig(num_antennas=16, fft_size=1024, cyclic_prefix=72, frame_len=11)
+    want = UplinkReceiver(cfg, pilot, pipeline="composed", device=dev).demod_frame(
+        frame).to_numpy()
+    sd = StreamingDemodulator(cfg, pilot, pipeline=pipeline, device=dev)
+    pipe.reset_launch_counts()
+    sd.push_pilot(frame[0])
+    rows = np.stack([sd.push_symbol(frame[i], slot=i).to_numpy() for i in range(1, 11)])
+    if pipeline == "fused":
+        assert pipe.launch_counts == {"pilot_ls": 1, "fft_mrc": 10}
+    assert max_rel(rows, want) < TOL
+
+
+# (variant, ts, S, antennas, F): the main path's frame, a ragged last window
+# at a small shape, and each window height.
+PROBE_CASES = [("auto", 2, 101, 16, 1024), ("manual2", 2, 101, 16, 1024),
+               ("manual3s", 2, 101, 16, 1024), ("manual3", 2, 5, 3, 256),
+               ("manual2s", 1, 7, 4, 512), ("manual4", 4, 9, 2, 128),
+               ("manual2s", 8, 11, 1, 256), ("auto", 2, 5, 3, 256)]
+
+
+@pytest.mark.parametrize("compute", [0, 2])
+@pytest.mark.parametrize("variant,ts,s,a,f", PROBE_CASES)
+def test_io_probe_kernels_match_plain(dev, variant, ts, s, a, f, compute):
+    yre, yim, bias, w = dma_probe.make_frames(1, s, a, f, dev, seed=3)
+    bias = bias + 0.5
+    name = "io_manual" if variant.startswith("manual") else "io_auto"
+    before = dma_probe.launch_counts[name]
+    got = dma_probe.io_probe(yre[0], yim[0], bias, w, variant=variant, ts=ts,
+                             compute=compute)
+    torch.cuda.synchronize()
+    assert dma_probe.launch_counts[name] == before + 1
+    want = dma_probe.io_probe_plain(yre[0], yim[0], bias, w, compute)
+    for g, h in zip(got, want):
+        assert max_rel(g.cpu().numpy(), h.cpu().numpy()) < TOL
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    frame, pilot = frame_on(dev, 256, 2, 3, 0, "f32")
+    hconj, hsqrd = UplinkReceiver(FrameConfig(num_antennas=2, fft_size=256, frame_len=3),
+                                  pilot, pipeline="composed", device=dev
+                                  ).estimate_channel(frame[0])
+    with pytest.raises(ValueError):
+        fused_mrc.fused_demod(frame[1:], hconj, hsqrd[:-1])
+    with pytest.raises(ValueError):  # rows not contiguous
+        fused_mrc.fused_demod(CArray(frame.re[1:].transpose(1, 2), frame.im[1:].transpose(1, 2)),
+                              hconj, hsqrd)
+    yre, yim, bias, w = dma_probe.make_frames(1, 16, 16, 1024, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        dma_probe.io_probe(yre[0], yim[0], bias, w, variant="manual3", ts=8)
+    with pytest.raises(ValueError):
+        dma_probe.io_probe(yre[0], yim[0], bias[:-1], w, variant="auto")

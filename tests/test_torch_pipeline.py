@@ -74,8 +74,8 @@ def port_rows(case):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_estimate_pilot_plain_matches_jax_kernel(case):
     h_re, h_im, inv, _, x_perm = jax_fused(case)
-    want_h, want_inv = convert.estimate_from_reference(h_re, h_im, inv)
-    x_full = convert.pilot_from_reference(x_perm)
+    want_h, want_inv = convert.estimate_from_reference(h_re, h_im, inv, device="cpu")
+    x_full = convert.pilot_from_reference(x_perm, device="cpu")
     got_h, got_inv = pipe.estimate_pilot_plain(port_rows(case)[0], x_full)
     assert max_rel(got_h.to_numpy(), want_h.to_numpy()) < TOL
     # inv = 1/sum_a|h|^2 peaks where |h| is smallest, so its max-rel
@@ -87,7 +87,7 @@ def test_estimate_pilot_plain_matches_jax_kernel(case):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_fused_pipeline_plain_matches_jax_kernel(case):
     h_re, h_im, inv, want, _ = jax_fused(case)
-    h, inv_n = convert.estimate_from_reference(h_re, h_im, inv)
+    h, inv_n = convert.estimate_from_reference(h_re, h_im, inv, device="cpu")
     got = pipe.fused_pipeline_plain(port_rows(case)[1:], h, inv_n).to_numpy()
     assert got.shape == want.shape
     assert max_rel(got, want) < TOL
@@ -126,7 +126,8 @@ def test_frame_axis_batches_frames():
 def test_pilot_from_reference_is_pad_pilot(f):
     rng = np.random.default_rng(f)
     pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
-    got = convert.pilot_from_reference(jfastpath.prepare_pilot_fast(pilot, f).to_numpy())
+    got = convert.pilot_from_reference(jfastpath.prepare_pilot_fast(pilot, f).to_numpy(),
+                                       device="cpu")
     np.testing.assert_array_equal(got.to_numpy(), tls.pad_pilot(pilot, "cpu").to_numpy())
 
 
@@ -164,3 +165,20 @@ def test_twiddle_table_is_float64_grade():
     want = np.exp(-2j * np.pi * np.arange(512) / 1024)
     assert tw.dtype == np.float32 and tw.shape == (512, 2)
     assert np.max(np.abs(tw[:, 0] + 1j * tw[:, 1] - want)) < 1e-7
+
+
+def test_convert_defaults_to_the_card(monkeypatch):
+    """Every convert helper puts its tensors on the card unless asked for
+    the CPU, and raises where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones(256, np.complex64)
+    h = np.ones((2, 2, 128), np.float32)
+    inv = np.ones((2, 128), np.float32)
+    calls = [lambda **kw: convert.pilot_from_reference(x, **kw),
+             lambda **kw: convert.estimate_from_reference(h, h, inv, **kw),
+             lambda **kw: convert.streaming_state_from_reference(
+                 h.reshape(2, 256), h.reshape(2, 256), inv.reshape(256), **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            call()
+        call(device="cpu")

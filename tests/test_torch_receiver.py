@@ -64,7 +64,7 @@ def jax_main():
 @pytest.mark.parametrize("pipeline", ["fused", "composed"])
 def test_receiver_matches_jax_and_golden(pipeline):
     cfg, frame, pilot = make_frame(*MAIN, seed=11)
-    got = UplinkReceiver(cfg, pilot, pipeline=pipeline).demod_frame(frame).to_numpy()
+    got = UplinkReceiver(cfg, pilot, pipeline=pipeline, device="cpu").demod_frame(frame).to_numpy()
     assert got.shape == (cfg.num_data_symbols, cfg.num_subcarriers)
     for jax_pipeline, want in jax_main().items():
         assert max_rel(got, want) < TOL, jax_pipeline
@@ -74,7 +74,7 @@ def test_receiver_matches_jax_and_golden(pipeline):
 def test_demod_frame_fused_matches_jax():
     cfg, frame, pilot = make_frame(*MAIN, seed=11)
     x_full = convert.pilot_from_reference(
-        jfastpath.prepare_pilot_fast(pilot, cfg.fft_size).to_numpy())
+        jfastpath.prepare_pilot_fast(pilot, cfg.fft_size).to_numpy(), device="cpu")
     got = pipe.demod_frame_fused(CArray.from_numpy(frame, "cpu"), x_full,
                                  cp=cfg.cyclic_prefix).to_numpy()
     assert max_rel(got, jax_main()["fused"]) < TOL
@@ -91,7 +91,7 @@ def test_sc16_frame_matches_jax_kernel_and_golden():
                                  jfastpath.prepare_pilot_fast(pilot, f), cp=0,
                                  interpret=True).to_numpy()
     cfg = FrameConfig(num_antennas=a, fft_size=f, cyclic_prefix=0, frame_len=s)
-    got = UplinkReceiver(cfg, pilot).demod_frame(
+    got = UplinkReceiver(cfg, pilot, device="cpu").demod_frame(
         CArray(torch.from_numpy(re), torch.from_numpy(im))).to_numpy()
     assert max_rel(got, want) < TOL
     dequant = (re.astype(np.float32) + 1j * im.astype(np.float32)) / 32767.0
@@ -102,7 +102,7 @@ def test_sc16_frame_matches_jax_kernel_and_golden():
 @pytest.mark.parametrize("a,f,s", [(1, 256, 5), (4, 256, 17), (4, 1024, 9)])
 def test_demod_parts_equals_demod_frame(a, f, s):
     cfg, frame, pilot = make_frame(a, f, s, 0, seed=13)
-    rx = UplinkReceiver(cfg, pilot)
+    rx = UplinkReceiver(cfg, pilot, device="cpu")
     whole = rx.demod_frame(frame).to_numpy()
     parts = rx.demod_parts(frame[0], frame[1:]).to_numpy()
     np.testing.assert_array_equal(parts, whole)
@@ -115,7 +115,7 @@ def test_demod_capture_equals_per_frame(pipeline, cp):
     cfg = FrameConfig(num_antennas=4, fft_size=256, cyclic_prefix=cp, frame_len=5)
     frames = crandn(rng, (3, 5, 4, 256 + cp))
     pilot = np.exp(2j * np.pi * rng.random(255)).astype(np.complex64)
-    rx = UplinkReceiver(cfg, pilot, pipeline=pipeline)
+    rx = UplinkReceiver(cfg, pilot, pipeline=pipeline, device="cpu")
     got = rx.demod_capture(frames).to_numpy()
     assert got.shape == (3, 4, 255)
     for k in range(3):
@@ -125,7 +125,7 @@ def test_demod_capture_equals_per_frame(pipeline, cp):
 @pytest.mark.parametrize("cp", [0, 72])
 def test_split_phase_matches_jax(cp):
     cfg, frame, pilot = make_frame(4, 256, 9, cp, seed=15)
-    rx = UplinkReceiver(cfg, pilot)
+    rx = UplinkReceiver(cfg, pilot, device="cpu")
     jrx = JaxReceiver(cfg, pilot, pipeline="composed")
     hconj, hsqrd = rx.estimate_channel(frame[0])
     jhconj, jhsqrd = jrx.estimate_channel(frame[0])
@@ -144,13 +144,13 @@ def test_evm_through_channel(pipeline):
     pilot = np.exp(2j * np.pi * rng.random(cfg.num_subcarriers)).astype(np.complex64)
     rx_frame = ChannelModel(4, 256, num_taps=8, snr_db=30.0, seed=9).apply(
         make_tx_frame(data, pilot, 16), 16)
-    out = UplinkReceiver(cfg, pilot, pipeline=pipeline).demod_frame(rx_frame).to_numpy()
+    out = UplinkReceiver(cfg, pilot, pipeline=pipeline, device="cpu").demod_frame(rx_frame).to_numpy()
     assert evm_db(np.fft.fftshift(out, axes=-1), data) < -30.0
 
 
 def test_warmup_and_module_buffers():
     cfg, frame, pilot = make_frame(2, 256, 3, 8, seed=17)
-    rx = UplinkReceiver(cfg, pilot)
+    rx = UplinkReceiver(cfg, pilot, device="cpu")
     rx.warmup()
     assert set(dict(rx.named_buffers())) == {"x_full_re", "x_full_im"}
     assert rx.device == torch.device("cpu")
@@ -168,10 +168,12 @@ def test_loud_errors(monkeypatch):
     small = FrameConfig(num_antennas=2, fft_size=128, frame_len=3)
     with pytest.raises(ValueError, match="fft_size"):
         UplinkReceiver(small, pilot[:127])
-    UplinkReceiver(small, pilot[:127], pipeline="composed")  # composed covers any size
+    UplinkReceiver(small, pilot[:127], pipeline="composed", device="cpu")  # any size
     with pytest.raises(ValueError, match="cyclic_prefix=0"):
         UplinkReceiver(FrameConfig(num_antennas=2, fft_size=256, cyclic_prefix=8,
-                                   frame_len=3), pilot).demod_parts(frame[0], frame[1:])
+                                   frame_len=3), pilot, device="cpu").demod_parts(frame[0], frame[1:])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         UplinkReceiver(cfg, pilot, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        UplinkReceiver(cfg, pilot)  # the default device is the card
