@@ -8,11 +8,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. toolchain: Python, torch, CUDA, nvcc, triton/ninja, the card's name and
    power limit; the card must be compute capability 9.0 (Hopper).
 2. build: compiles csrc/ with nvcc for sm_90a, one process per source, all
-   at once (ptxas report printed).
+   at once (ptxas report printed, then the registers, spills and shared
+   memory of the two data kernels at F = 1024).
 3. kernels: each kernel against its plain PyTorch version on the card, max-rel
    below 2e-5 (both sides fp32 FFTs or sums taken in another order):
    pilot_ls, fft_mrc and mrc_demod at the main path's shapes (16 antennas x
-   1024 bins, 101 symbols), f32 and int16 input, cyclic prefix 0 and 72;
+   1024 bins, 101 symbols), f32 and int16 input, cyclic prefix 0 and 72
+   (rows 16-byte aligned: the data kernels' cp.async loads) and 1 (the
+   element-by-element loads);
    mrc_demod also at F = 64, 4 antennas; the io probes auto, manual2 and
    manual3s with compute 0 and 2 on one 16 x 1024 x 101 f32 frame.
 4. main path: UplinkReceiver(16 x 1024, cp 72, 101 symbols, fused, cuda) on
@@ -31,7 +34,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (torch.fft.fft over the same rows for the FFT kernels, one torch.sum for
    the probes) at the main path's shapes; demod_capture over 20
    device-resident sc16 frames with the prefix stripped on the host
-   (bench.py's default mode, seed 0).
+   (bench.py's default mode, seed 0); fft_mrc on one 64-antenna frame
+   (64 x 1024 x 101, f32, cp 72).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -40,8 +44,11 @@ The second-to-last lines are the kernels' JSON record and the card's
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +100,22 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_lines(report: str):
+    """One line per data-kernel instantiation at F = 1024 from nvcc's
+    -Xptxas -v report: registers, spills and the dynamic shared memory the
+    launch asks for (ops/fft_plan.py smem_bytes)."""
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan
+
+    pat = (r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_kernelILi(\d+)E(\w)Lb(\d)E"
+           r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers")
+    for name, f, t, aligned, spill, regs in re.findall(pat, report, re.S):
+        if int(f) == 1024:
+            yield (f"ptxas {name}<{f}, {'int16' if t == 's' else 'float'}, "
+                   f"{'cp.async' if aligned == '1' else 'element'} loads>: {regs} registers, "
+                   f"{spill} B spilled, {fft_plan.smem_bytes(int(f))} B dynamic shared memory, "
+                   f"{fft_plan.plan(int(f)).block} threads a block")
+
+
 def main() -> int:
     import torch
 
@@ -138,9 +161,15 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_library(verbose=True)
+    ptxas = io.StringIO()
+    with contextlib.redirect_stdout(ptxas):
+        build.build_library(verbose=True)
     build.load_library()
+    print(ptxas.getvalue(), end="")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    summary = list(ptxas_lines(ptxas.getvalue()))
+    require(len(summary) == 8, f"ptxas report: {len(summary)} data kernels at F = 1024, want 8")
+    print("\n".join(summary))
 
     # -- 3. each kernel against its plain version ---------------------------
     def frame_of(rng, shape, dtype):
@@ -167,7 +196,7 @@ def main() -> int:
     pilot = np.exp(2j * np.pi * rng.random(FFT - 1)).astype(np.complex64)
     x_full = ls.pad_pilot(pilot, dev)
     for dtype in ("f32", "int16"):
-        for cp in (0, CP):
+        for cp in (0, 1, CP):
             label = f"{dtype} cp={cp}"
             frame = frame_of(rng, (SYMBOLS, ANTENNAS, FFT + cp), dtype)
             y = frame[..., cp:]
@@ -332,15 +361,21 @@ def main() -> int:
 
     def device_ms(fn, n: int) -> dict:
         """Per call, the device time of each CUDA kernel it runs, by name
-        (torch.profiler); empty when the profiler saw no device activity."""
+        (torch.profiler); empty when the profiler saw no device activity in
+        three tries (it now and then returns a trace without the device's
+        events)."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            split = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+            if split:
+                return split
+        return {}
 
     def measure(kernel_fn, plain_fn, n: int, library_fn=None):
         """Events in the order plain, kernel, kernel, plain (mean of each
@@ -356,8 +391,8 @@ def main() -> int:
             t["library_dev"] = sum(device_ms(library_fn, n).values())
         return t
 
-    def report(label: str, t: dict, frames: int = 1) -> None:
-        samples = frames * SYMBOLS * ANTENNAS * FFT
+    def report(label: str, t: dict, frames: int = 1, antennas: int = ANTENNAS) -> None:
+        samples = frames * SYMBOLS * antennas * FFT
         for who in ("kernel", "plain"):
             call, dev_t = t[f"{who}_call"], t[f"{who}_dev"]
             print(f"time {label} {who}: device {dev_t * 1e3 / frames:.2f} us/frame "
@@ -437,6 +472,34 @@ def main() -> int:
     require(rel < KERNEL_TOL, f"demod_capture vs plain: max-rel {rel:.3e}")
     report(f"demod_capture ({CAPTURE_FRAMES} sc16 frames, cp stripped on host)",
            measure(lambda: rx_cap.demod_capture(cap), capture_plain, 10), CAPTURE_FRAMES)
+    cap_bytes = SYMBOLS * ANTENNAS * FFT * 4 + (SYMBOLS - 1) * (FFT - 1) * 8
+    print(f"bound demod_capture: {cap_bytes / 1e6:.3f} MB a frame (sc16 in, f32 out) -> "
+          f"{cap_bytes / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s, "
+          f"{cap_bytes / io_floor * 1e6:.2f} us at the measured io floor  [{card}]")
+    del cap
+
+    # fft_mrc on a 64-antenna frame (64 x 1024 x 101, f32, cp 72).
+    wide = frame_of(np.random.default_rng(3), (SYMBOLS, 64, FFT + CP), "f32")[..., CP:]
+    h64, inv64 = pipe.estimate_pilot_plain(wide[0], x_full)
+    rel = max_rel(pipe.fused_pipeline(wide[1:], h64, inv64).to_numpy(),
+                  pipe.fused_pipeline_plain(wide[1:], h64, inv64).to_numpy())
+    require(rel < KERNEL_TOL, f"fft_mrc 64 antennas vs plain: max-rel {rel:.3e}")
+    wide_c = torch.complex(wide[1:].re.contiguous(), wide[1:].im.contiguous())
+    t64 = measure(lambda: pipe.fused_pipeline(wide[1:], h64, inv64),
+                  lambda: pipe.fused_pipeline_plain(wide[1:], h64, inv64), 50,
+                  lambda: torch.fft.fft(wide_c, dim=-1))
+    del wide_c
+    print(f"fft_mrc 64 antennas: max-rel vs plain {rel:.3e}")
+    report("fft_mrc (one 64-antenna frame, 64x1024x101 f32, cp 72)", t64, antennas=64)
+    s64 = SYMBOLS - 1
+    b64 = s64 * 64 * FFT * 8 + 64 * FFT * 8 + FFT * 4 + s64 * (FFT - 1) * 8
+    f64 = fft_flops(s64 * 64, FFT) + 8.0 * s64 * 64 * FFT + 2.0 * s64 * FFT
+    b64_ms, b64_by = bound_ms(b64, f64)
+    k64_ms = t64["kernel_dev"] or t64["kernel_call"]
+    print(f"bound fft_mrc 64 antennas: {b64 / 1e6:.3f} MB, {f64 / 1e6:.1f} MFLOP -> "
+          f"{b64_ms * 1e3:.2f} us ({b64_by}) at the published peaks, "
+          f"{b64 / io_floor * 1e6:.2f} us at the measured io floor; kernel "
+          f"{k64_ms * 1e3:.2f} us  [{card}]")
 
     # Work of each kernel at the timed shapes (f32 in, one frame; the probes
     # one frame of 101 symbols): each input read once, each output written once.
@@ -465,6 +528,8 @@ def main() -> int:
             rec["variant"] = manual_variant
         if name in ("pilot_ls", "fft_mrc"):
             rec["launches_streaming"] = stream_launches["fused"][name]
+        if name == "fft_mrc":
+            rec["ms_64_antennas"], rec["bound_ms_64_antennas"] = k64_ms, b64_ms
         records.append(rec)
         print(f"bound {name}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP -> "
               f"{b_ms * 1e3:.2f} us ({b_by}) at the published peaks, "

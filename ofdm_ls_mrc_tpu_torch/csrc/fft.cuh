@@ -1,8 +1,9 @@
 // Block-level F-point complex FFT in shared memory (radix-2 Stockham).
 //
-// Shared by pilot_ls.cu, fft_mrc.cu and mrc_demod.cu.  A group of NT
-// threads (the whole block of kThreads in the first two) transforms one
-// row of F complex samples held in shared memory as float2 (re, im):
+// Used by pilot_ls.cu (the data kernels run the register FFT of
+// fft_warp.cuh).  A group of NT threads (the whole block of kThreads in
+// pilot_ls.cu) transforms one row of F complex samples held in shared
+// memory as float2 (re, im):
 // log2(F) radix-2 Stockham stages ping-pong between two F-long buffers, so
 // the output lands in natural frequency order with no bit-reversal pass.
 // The transform is the unnormalized forward DFT (== np.fft.fft).

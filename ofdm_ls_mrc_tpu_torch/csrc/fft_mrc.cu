@@ -2,119 +2,121 @@
 // num = sum_a Y_a * conj(h_a), equalize eq = num * inv, and store the
 // (F-1)-wide row in the reference's output order.
 //
-// Replaces ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:_kernel (wrapper
-// fused_pipeline, default schedule g2, exact) together with its XLA epilogue
-// to_reference_order.  Grid (S, K): one block per data symbol of one frame.
-// The block loops over the A antennas: it loads the row (float32, or int16
-// sc16 planes widened and scaled on load) through the caller's strides, so
-// a frame that still carries its cyclic prefix, or whose pilot row comes
-// first, is read in place and never copied; it FFTs the row in shared
-// memory (csrc/fft.cuh) and accumulates num in registers, F/256 bins per
-// thread.  The store writes out[j] = eq[1 + (j + (F-1)/2) mod (F-1)]: the
-// DC drop and the output ifftshift (shiftOneRow, cpuLS.hpp:368).
+// Replaces ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:_kernel (:320, wrapper
+// fused_pipeline :753, default schedule g2, exact) together with its XLA
+// epilogue to_reference_order (:682).  Grid (ceil(S / G), K); the row
+// mapping, the register FFT and the load pipeline are csrc/fft_warp.cuh's.
+// At F = 1024 a block of 128 threads is one symbol: four one-warp teams, team
+// p taking antennas p, p + 4, ... (four rows each at 16 antennas).  Rows are
+// read in place through the caller's strides (a frame that still carries its
+// cyclic prefix or its pilot row is never copied); an odd prefix takes the
+// element-by-element load path.  The store writes
+// out[j] = eq[1 + (j + (F-1)/2) mod (F-1)]: the DC drop and the output
+// ifftshift (shiftOneRow, cpuLS.hpp:368), and scales by inv (and 1/32767
+// for sc16 rows, taken out of the row reads).
 //
-// Bound on this card: a data symbol's input is 64 KB in sc16 (128 KB in
-// f32), read from device memory once; a frame (16 antennas x 1024 x 100
-// data symbols) is 6.6 MB of sc16 in and 0.82 MB out, about 2.2 us at
-// 3.35 TB/s.  The FFT work is ~80 MFLOP per frame, far under the fp32 rate,
-// but each row makes 10 passes through shared memory with a barrier each,
-// and one frame gives only 100 blocks for 132 SMs, so K frames go through
-// one launch (UplinkReceiver.demod_capture).  The channel estimate h
-// (16 x 1024 x 8 B = 128 KB per frame) is read from L2 by every block of
-// the frame: the first thing a later optimisation looks at, together with
-// overlapping the next row's load with the current row's FFT.
+// Bound on this card: bytes.  One f32 frame (16 x 1024 x 100 symbols) reads
+// 13.1 MB of rows and 0.13 MB of estimate and writes 0.82 MB: 4.2 us at
+// 3.35 TB/s, 5.0 us at the measured io floor; an sc16 frame 7.4 MB, 2.2 us.
+// Its ~95 MFLOP take 1.4 us at 67 TFLOP/s, but the FFT's additions do not
+// pair into FMAs: a row costs ~1,650 instructions a thread (3,872 SASS
+// instructions in the <1024, int16> kernel, which holds the row body
+// twice), ~2.6 M warp-instructions a frame, ~2.5 us at one issue per
+// scheduler and clock, so issue and latency, not bytes, set the time.
+// What the design does, against the previous kernel (one block of 256
+// threads per symbol, the 16 rows in sequence through the shared-memory
+// radix-2 FFT of fft.cuh):
+//   - the antennas run on four teams side by side, not in sequence;
+//   - a row pays four __syncwarp and no block barrier (before: eleven block
+//     barriers a row); a symbol pays two __syncthreads;
+//   - row i+1's cp.async copy is in flight during row i's FFT, and h's row
+//     is prefetched into L1 with it;
+//   - the exchange slot e + e / M makes each pass's transpose free of bank
+//     conflicts, and the twiddle reads are consecutive (before: 4- to 16-way
+//     conflicts on tw_s[k * tstride]);
+//   - h: every block still reads all A rows of its frame, 12.8 MB of L2
+//     reads per f32 frame, as before.  Two symbols per block would halve
+//     that, but measured slower (PERF.md);
+//   - one frame still gives 100 blocks for 132 SMs; a symbol's 16 rows are 4
+//     per team in sequence, also at S = 1 (the streaming shape).
+// ptxas (sm_90a): 223-226 registers at F = 1024 (254 for f32 rows on the
+// element path), no spills; 75,776 B of dynamic shared memory a block, so 2 blocks (8 warps)
+// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.
 
 #include <cstdint>
 
-#include "fft.cuh"
+#include "fft_warp.cuh"
 
 namespace ofdm {
 
-template <int F, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int F, typename T, bool kAligned>
+__global__ void __launch_bounds__(wfft::Plan<F>::kBlock, wfft::Plan<F>::kMinBlocks)
 fft_mrc_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
                long long stride_k, long long stride_s, long long stride_a,
-               float scale, int A, const float* __restrict__ h_re,
+               float scale, int S, int A, const float* __restrict__ h_re,
                const float* __restrict__ h_im, const float* __restrict__ inv,
                const float2* __restrict__ tw, float* __restrict__ out_re,
                float* __restrict__ out_im) {
-  constexpr int kBins = F / kThreads;  // bins a thread accumulates
-  extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* b = smem + F;
-  float2* tw_s = smem + 2 * F;
-  const int s = blockIdx.x;
+  using G_ = wfft::Geo<F>;
+  extern __shared__ float4 smem4[];
+  const wfft::Smem<F> sm(smem4);
+  const wfft::Team<G_::T> team;
+  const int g = team.id / G_::P;  // symbol of the block
+  const int p = team.id % G_::P;  // team of the symbol
+  const int s = blockIdx.x * G_::G + g;
   const int k = blockIdx.y;
-  const long long sym = k * stride_k + s * stride_s;
-  const float* hr_k = h_re + static_cast<long long>(k) * A * F;
-  const float* hi_k = h_im + static_cast<long long>(k) * A * F;
+  const bool live = s < S;
+  const long long sym = k * stride_k + static_cast<long long>(live ? s : 0) * stride_s;
+  const long long hk = static_cast<long long>(k) * A * F;
 
-  load_twiddles<F>(tw_s, tw);
-  float num_re[kBins], num_im[kBins];
-#pragma unroll
-  for (int r = 0; r < kBins; ++r) num_re[r] = num_im[r] = 0.0f;
+  wfft::team_rows<F, T, kAligned, true>(y_re + sym, y_im + sym, stride_a, A, p, live,
+                                        h_re + hk, h_im + hk, tw, sm, team);
+  __syncthreads();
+  if (!live) return;
 
-  for (int ant = 0; ant < A; ++ant) {
-    const long long off = sym + ant * stride_a;
-    load_row<F, T>(a, y_re + off, y_im + off, scale);
-    __syncthreads();
-    const float2* y = stockham_fft<F>(a, b, tw_s);
-    const float* hr = hr_k + static_cast<long long>(ant) * F;
-    const float* hi = hi_k + static_cast<long long>(ant) * F;
-#pragma unroll
-    for (int r = 0; r < kBins; ++r) {
-      const int t = threadIdx.x + r * kThreads;
-      const float2 v = y[t];
-      const float cr = hr[t], ci = hi[t];
-      num_re[r] += v.x * cr + v.y * ci;  // Y * conj(h)
-      num_im[r] += v.y * cr - v.x * ci;
-    }
-    __syncthreads();  // the next row's load overwrites a
-  }
-
+  // eq = num * scale * inv, stored as out[j] = eq[1 + (j + (F-1)/2) mod (F-1)].
   const float* inv_k = inv + static_cast<long long>(k) * F;
-  const long long row = (static_cast<long long>(k) * gridDim.x + s) * (F - 1);
-#pragma unroll
-  for (int r = 0; r < kBins; ++r) {
-    const int t = threadIdx.x + r * kThreads;
+  const long long row = (static_cast<long long>(k) * S + s) * (F - 1);
+  for (int t = p * G_::T + team.j; t < F; t += G_::P * G_::T) {
     if (t == 0) continue;  // DC bin
     int j = t - F / 2;
     if (j < 0) j += F - 1;
-    const float g = inv_k[t];
-    out_re[row + j] = num_re[r] * g;
-    out_im[row + j] = num_im[r] * g;
+    const float2 num = wfft::partial_sum<F>(sm, g, t);
+    const float gain = inv_k[t] * scale;
+    out_re[row + j] = num.x * gain;
+    out_im[row + j] = num.y * gain;
   }
 }
 
-template <int F, typename T>
+template <int F, typename T, bool kAligned>
 cudaError_t launch_fft_mrc(const void* y_re, const void* y_im, long long stride_k,
                            long long stride_s, long long stride_a, float scale,
                            int K, int S, int A, const float* h_re,
                            const float* h_im, const float* inv, const float* tw,
                            float* out_re, float* out_im, cudaStream_t stream) {
-  auto kernel = fft_mrc_kernel<F, T>;
-  const size_t smem = smem_bytes<F>();
-  cudaError_t err = allow_smem(kernel, smem);
+  using G_ = wfft::Geo<F>;
+  auto kernel = fft_mrc_kernel<F, T, kAligned>;
+  cudaError_t err = allow_smem(kernel, G_::kSmemBytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(S, K), kThreads, smem, stream>>>(
+  kernel<<<dim3((S + G_::G - 1) / G_::G, K), G_::kBlock, G_::kSmemBytes, stream>>>(
       static_cast<const T*>(y_re), static_cast<const T*>(y_im), stride_k, stride_s,
-      stride_a, scale, A, h_re, h_im, inv, reinterpret_cast<const float2*>(tw),
-      out_re, out_im);
+      stride_a, scale, S, A, h_re, h_im, inv,
+      reinterpret_cast<const float2*>(tw), out_re, out_im);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kAligned>
 cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
                              long long stride_k, long long stride_s,
                              long long stride_a, float scale, int K, int S, int A,
                              const float* h_re, const float* h_im,
                              const float* inv, const float* tw, float* out_re,
                              float* out_im, cudaStream_t stream) {
-#define OFDM_FFT_MRC_CASE(N)                                                  \
-  case N:                                                                     \
-    return launch_fft_mrc<N, T>(y_re, y_im, stride_k, stride_s, stride_a,     \
-                                scale, K, S, A, h_re, h_im, inv, tw, out_re,  \
-                                out_im, stream);
+#define OFDM_FFT_MRC_CASE(N)                                                     \
+  case N:                                                                        \
+    return launch_fft_mrc<N, T, kAligned>(y_re, y_im, stride_k, stride_s,        \
+                                          stride_a, scale, K, S, A, h_re, h_im,  \
+                                          inv, tw, out_re, out_im, stream);
   switch (F) {
     OFDM_FFT_MRC_CASE(256)
     OFDM_FFT_MRC_CASE(512)
@@ -132,22 +134,29 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
 // Data rows: y_re/y_im point at row (k=0, s=0, a=0) of K x S x A rows of F
 // samples, row (k, s, a) at element offset k*stride_k + s*stride_s +
 // a*stride_a; int16 when in_int16 (scaled by `scale`), float32 otherwise.
+// aligned: every row starts 16-byte aligned (the bases and the three strides
+// in bytes are multiples of 16), which selects the cp.async load path.
 // h_re/h_im: [K, A, F] unconjugated estimate, inv: [K, F], natural order.
-// tw: [F/2] float2 twiddles.  Outputs out_re/out_im: [K, S, F-1] in
-// reference order.  Returns the cudaError_t of the launch.
+// tw: the pass twiddles of ops/fft_plan.py.  Outputs out_re/out_im:
+// [K, S, F-1] in reference order.  Returns the cudaError_t of the launch.
 extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
-                            long long stride_k, long long stride_s,
+                            int aligned, long long stride_k, long long stride_s,
                             long long stride_a, float scale, int K, int S, int A,
                             int F, const float* h_re, const float* h_im,
                             const float* inv, const float* tw, float* out_re,
                             float* out_im, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      in_int16 ? ofdm::dispatch_fft_mrc<int16_t>(F, y_re, y_im, stride_k, stride_s,
-                                                 stride_a, scale, K, S, A, h_re,
-                                                 h_im, inv, tw, out_re, out_im, st)
-               : ofdm::dispatch_fft_mrc<float>(F, y_re, y_im, stride_k, stride_s,
-                                               stride_a, scale, K, S, A, h_re, h_im,
-                                               inv, tw, out_re, out_im, st);
+  auto run = [&](auto dispatch) {
+    return dispatch(F, y_re, y_im, stride_k, stride_s, stride_a, scale, K, S, A, h_re,
+                    h_im, inv, tw, out_re, out_im, st);
+  };
+  cudaError_t err;
+  if (in_int16) {
+    err = aligned ? run(ofdm::dispatch_fft_mrc<int16_t, true>)
+                  : run(ofdm::dispatch_fft_mrc<int16_t, false>);
+  } else {
+    err = aligned ? run(ofdm::dispatch_fft_mrc<float, true>)
+                  : run(ofdm::dispatch_fft_mrc<float, false>);
+  }
   return static_cast<int>(err);
 }

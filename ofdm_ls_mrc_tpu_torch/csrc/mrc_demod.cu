@@ -4,133 +4,92 @@
 // in true frequency order (DC bin included and meaningless); the caller
 // finalizes it (mrc.finalize: DC drop + output ifftshift).
 //
-// Replaces ofdm_ls_mrc_tpu/ops/pallas_mrc.py:_fused_kernel (wrapper
-// fused_demod), the reference's firstVector + demodOneSymbol data half.
-// The TPU kernel ran a four-step DFT as fp32-HIGHEST MXU dots over
-// antenna chunks sized to scoped VMEM and kept its output in a permuted
-// [k1, k2] order, gathered back outside.  Here a group of NT threads runs
-// the radix-2 Stockham FFT of csrc/fft.cuh on one row in shared memory,
-// in natural order, and accumulates num in registers, F/NT bins per
-// thread; there is no permutation to undo.
+// Replaces ofdm_ls_mrc_tpu/ops/pallas_mrc.py:_fused_kernel (:62, wrapper
+// fused_demod :136), the reference's firstVector + demodOneSymbol data half.
+// The TPU kernel ran a four-step DFT as fp32-HIGHEST MXU dots over antenna
+// chunks sized to scoped VMEM and kept its output in a permuted [k1, k2]
+// order, gathered back outside.  Here the rows go through the register FFT
+// of csrc/fft_warp.cuh (the same teams, pipeline and exchange as
+// fft_mrc.cu), whose bins land in natural order: no permutation to undo.
+// F from 64 to 4096: below F = 1024 a team is 8 or 16 lanes and a block of
+// 128 threads holds 2 (F = 256, 512) or 4 (F = 64, 128) symbols, so each
+// h row a team reads serves that many symbols from L1.
 //
-// Block shape: kThreads (256) threads hold G = 256/NT symbols, with
-// NT = min(F/2, 256) threads per symbol: one butterfly per thread and
-// stage up to F = 512.  At F = 64 a block holds 8 symbols (8 rows side by
-// side), at F >= 512 one.  Grid: ceil(S / G) blocks; the groups of a
-// ragged last block that hold no symbol run the barriers and store nothing.
-// Rows are read through the caller's strides (a frame's data[..., cp:] is
-// never copied); int16 sc16 planes are widened and scaled on load.
-//
-// Bound on this card: bytes.  At 16 antennas x 1024 x 100 symbols of f32
-// a call reads 13.1 MB of rows plus 132 KB of estimate and writes 0.82 MB,
-// about 4.2 us at 3.35 TB/s; its ~95 MFLOP (5 F log2 F per row FFT plus 8
-// per MRC term) take 1.4 us at 67 TFLOP/s fp32.  As in fft_mrc.cu each row
-// makes log2(F) barrier-separated passes through shared memory and 100
-// symbols give 100 blocks for 132 SMs: a simple kernel first.
+// Bound on this card: bytes, as fft_mrc.cu: 16 antennas x 1024 x 100 f32
+// symbols read 13.1 MB of rows plus 0.13 MB of estimate and write 0.82 MB,
+// 4.2 us at 3.35 TB/s; ~95 MFLOP, 1.4 us at 67 TFLOP/s, but ~1,650
+// instructions a row and thread, so issue and latency set the time.  h is
+// 12.8 MB of L2 reads per frame at F = 1024 (one symbol per block).  ptxas
+// (sm_90a): 222-227 registers at F = 1024, no spills,
+// 75,776 B a block; F = 64: 80-85 registers, 19,456 B, 4 symbols a block;
+// F = 2048 with aligned rows spills 220-280 B at 255 registers.
 
 #include <cstdint>
 
-#include "fft.cuh"
+#include "fft_warp.cuh"
 
 namespace ofdm {
 
-// Threads per symbol row at size F.
-template <int F>
-__host__ __device__ constexpr int row_threads() {
-  return F / 2 < kThreads ? F / 2 : kThreads;
-}
-
-template <int F>
-__host__ __device__ constexpr size_t demod_smem_bytes() {
-  return (static_cast<size_t>(kThreads / row_threads<F>()) * 2 * F + F / 2) *
-         sizeof(float2);
-}
-
-template <int F, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int F, typename T, bool kAligned>
+__global__ void __launch_bounds__(wfft::Plan<F>::kBlock, wfft::Plan<F>::kMinBlocks)
 mrc_demod_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
                  long long stride_s, long long stride_a, float scale, int S,
                  int A, const float* __restrict__ hc_re,
                  const float* __restrict__ hc_im, const float* __restrict__ hsqrd,
                  const float2* __restrict__ tw, float* __restrict__ out_re,
                  float* __restrict__ out_im) {
-  constexpr int NT = row_threads<F>();
-  constexpr int G = kThreads / NT;  // symbols per block
-  constexpr int kBins = F / NT;     // bins a thread accumulates
-  extern __shared__ float2 smem[];
-  const int g = threadIdx.x / NT;
-  const int lane = threadIdx.x % NT;
-  float2* a = smem + g * 2 * F;
-  float2* b = a + F;
-  float2* tw_s = smem + G * 2 * F;
-  const int s = blockIdx.x * G + g;
+  using G_ = wfft::Geo<F>;
+  extern __shared__ float4 smem4[];
+  const wfft::Smem<F> sm(smem4);
+  const wfft::Team<G_::T> team;
+  const int g = team.id / G_::P;  // symbol of the block
+  const int p = team.id % G_::P;  // team of the symbol
+  const int s = blockIdx.x * G_::G + g;
   const bool live = s < S;
-  const long long sym = live ? s * stride_s : 0;
+  const long long sym = static_cast<long long>(live ? s : 0) * stride_s;
 
-  load_twiddles<F>(tw_s, tw);
-  float num_re[kBins], num_im[kBins];
-#pragma unroll
-  for (int r = 0; r < kBins; ++r) num_re[r] = num_im[r] = 0.0f;
-
-  for (int ant = 0; ant < A; ++ant) {
-    if (live) {
-      const long long off = sym + ant * stride_a;
-      load_row_lanes<F, NT, T>(a, y_re + off, y_im + off, scale, lane);
-    }
-    __syncthreads();
-    const float2* y = stockham_fft_lanes<F, NT>(a, b, tw_s, lane);
-    const float* hr = hc_re + static_cast<long long>(ant) * F;
-    const float* hi = hc_im + static_cast<long long>(ant) * F;
-#pragma unroll
-    for (int r = 0; r < kBins; ++r) {
-      const int t = lane + r * NT;
-      const float2 v = y[t];
-      const float cr = hr[t], ci = hi[t];
-      num_re[r] += v.x * cr - v.y * ci;  // Y * hconj (already conjugated)
-      num_im[r] += v.x * ci + v.y * cr;
-    }
-    __syncthreads();  // the next row's load overwrites a
-  }
-
+  wfft::team_rows<F, T, kAligned, false>(y_re + sym, y_im + sym, stride_a, A, p, live,
+                                         hc_re, hc_im, tw, sm, team);
+  __syncthreads();
   if (!live) return;
+
   const long long row = static_cast<long long>(s) * F;
-#pragma unroll
-  for (int r = 0; r < kBins; ++r) {
-    const int t = lane + r * NT;
-    const float g_inv = 1.0f / hsqrd[t];
-    out_re[row + t] = num_re[r] * g_inv;
-    out_im[row + t] = num_im[r] * g_inv;
+  for (int t = p * G_::T + team.j; t < F; t += G_::P * G_::T) {
+    const float2 num = wfft::partial_sum<F>(sm, g, t);
+    const float gain = scale / hsqrd[t];
+    out_re[row + t] = num.x * gain;
+    out_im[row + t] = num.y * gain;
   }
 }
 
-template <int F, typename T>
+template <int F, typename T, bool kAligned>
 cudaError_t launch_mrc_demod(const void* y_re, const void* y_im, long long stride_s,
                              long long stride_a, float scale, int S, int A,
                              const float* hc_re, const float* hc_im,
                              const float* hsqrd, const float* tw, float* out_re,
                              float* out_im, cudaStream_t stream) {
-  auto kernel = mrc_demod_kernel<F, T>;
-  constexpr int G = kThreads / row_threads<F>();
-  const size_t smem = demod_smem_bytes<F>();
-  cudaError_t err = allow_smem(kernel, smem);
+  using G_ = wfft::Geo<F>;
+  auto kernel = mrc_demod_kernel<F, T, kAligned>;
+  cudaError_t err = allow_smem(kernel, G_::kSmemBytes);
   if (err != cudaSuccess) return err;
-  kernel<<<(S + G - 1) / G, kThreads, smem, stream>>>(
+  kernel<<<(S + G_::G - 1) / G_::G, G_::kBlock, G_::kSmemBytes, stream>>>(
       static_cast<const T*>(y_re), static_cast<const T*>(y_im), stride_s, stride_a,
-      scale, S, A, hc_re, hc_im, hsqrd, reinterpret_cast<const float2*>(tw), out_re,
-      out_im);
+      scale, S, A, hc_re, hc_im, hsqrd,
+      reinterpret_cast<const float2*>(tw), out_re, out_im);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kAligned>
 cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
                                long long stride_s, long long stride_a, float scale,
                                int S, int A, const float* hc_re, const float* hc_im,
                                const float* hsqrd, const float* tw, float* out_re,
                                float* out_im, cudaStream_t stream) {
-#define OFDM_MRC_DEMOD_CASE(N)                                                    \
-  case N:                                                                         \
-    return launch_mrc_demod<N, T>(y_re, y_im, stride_s, stride_a, scale, S, A,    \
-                                  hc_re, hc_im, hsqrd, tw, out_re, out_im, stream);
+#define OFDM_MRC_DEMOD_CASE(N)                                                   \
+  case N:                                                                        \
+    return launch_mrc_demod<N, T, kAligned>(y_re, y_im, stride_s, stride_a,      \
+                                            scale, S, A, hc_re, hc_im, hsqrd,    \
+                                            tw, out_re, out_im, stream);
   switch (F) {
     OFDM_MRC_DEMOD_CASE(64)
     OFDM_MRC_DEMOD_CASE(128)
@@ -149,21 +108,28 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
 
 // Data rows: y_re/y_im point at row (s=0, a=0) of S x A rows of F samples,
 // row (s, a) at element offset s*stride_s + a*stride_a; int16 when in_int16
-// (scaled by `scale`), float32 otherwise.  hc_re/hc_im: [A, F] conjugated
-// estimate, hsqrd: [F], true order.  tw: [F/2] float2 twiddles.  Outputs
+// (scaled by `scale`), float32 otherwise.  aligned: every row starts 16-byte
+// aligned (bases and strides in bytes multiples of 16), which selects the
+// cp.async load path.  hc_re/hc_im: [A, F] conjugated estimate, hsqrd: [F],
+// true order.  tw: the pass twiddles of ops/fft_plan.py.  Outputs
 // out_re/out_im: [S, F], true order.  Returns the cudaError_t of the launch.
 extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
-                              long long stride_s, long long stride_a, float scale,
-                              int S, int A, int F, const float* hc_re,
+                              int aligned, long long stride_s, long long stride_a,
+                              float scale, int S, int A, int F, const float* hc_re,
                               const float* hc_im, const float* hsqrd, const float* tw,
                               float* out_re, float* out_im, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      in_int16 ? ofdm::dispatch_mrc_demod<int16_t>(F, y_re, y_im, stride_s, stride_a,
-                                                   scale, S, A, hc_re, hc_im, hsqrd,
-                                                   tw, out_re, out_im, st)
-               : ofdm::dispatch_mrc_demod<float>(F, y_re, y_im, stride_s, stride_a,
-                                                 scale, S, A, hc_re, hc_im, hsqrd,
-                                                 tw, out_re, out_im, st);
+  auto run = [&](auto dispatch) {
+    return dispatch(F, y_re, y_im, stride_s, stride_a, scale, S, A, hc_re, hc_im, hsqrd,
+                    tw, out_re, out_im, st);
+  };
+  cudaError_t err;
+  if (in_int16) {
+    err = aligned ? run(ofdm::dispatch_mrc_demod<int16_t, true>)
+                  : run(ofdm::dispatch_mrc_demod<int16_t, false>);
+  } else {
+    err = aligned ? run(ofdm::dispatch_mrc_demod<float, true>)
+                  : run(ofdm::dispatch_mrc_demod<float, false>);
+  }
   return static_cast<int>(err);
 }

@@ -41,9 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ofdm_pilot_ls": (_P, _P, _I, _LL, _LL, _F, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P),
-    "ofdm_fft_mrc": (_P, _P, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
+    "ofdm_fft_mrc": (_P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P),
-    "ofdm_mrc_demod": (_P, _P, _I, _LL, _LL, _F, _I, _I, _I,
+    "ofdm_mrc_demod": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P),
     "ofdm_io_auto": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P),
     "ofdm_io_manual": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P),

@@ -1,0 +1,136 @@
+"""The factorization that the data kernels' register FFT runs
+(``csrc/fft_warp.cuh``, used by ``csrc/fft_mrc.cu`` and ``csrc/mrc_demod.cu``),
+and the host tables it reads.
+
+A row of F samples is transformed by a team of T = F / M threads, each
+holding M complex values in registers.  The transform is a mixed-radix
+Stockham FFT in len(radices) passes (radices[0] = M, product F):
+
+  pass p, radix R, Ns = product of the radices before p;
+  butterfly b in [0, F/R) takes x[b + (F/R) r], r < R, multiplies input r by
+  exp(-2 pi i (b mod Ns) r / (Ns R)), runs an R-point DFT, and writes output
+  r to position (b // Ns) Ns R + (b mod Ns) + Ns r.
+
+Thread j runs the butterflies b = j + T q, q < M/R, so it always reads the
+positions j + T m, m = q + (M/R) r, into register m.  The first pass reads
+the staged row; each later pass reads the previous pass's output from a
+shared-memory exchange buffer.  After the last pass register m of thread j
+holds bin j + T m (``lane_bins``): the kernels' h read and store use that
+map.  The twiddles of passes 1.. come from one float32 table computed in
+float64 (``pass_twiddles``), entry r Ns + c = exp(-2 pi i c r / (Ns R)), so
+a team's lanes read consecutive entries.  The R-point DFTs inside a thread
+use the constants of ``fft_warp.cuh``.
+
+The exchange buffer holds each plane (re, im) as floats, position e stored at
+``exchange_slot(F, e)`` = e + e // M, so a transpose between passes is free
+of bank conflicts; a plane takes ``plane_floats(F)`` floats and a team's two
+buffers ``team_floats(F)``.  Nothing here runs
+a kernel; the wrappers pass ``pass_twiddles`` to the kernels, and the CPU tests
+emulate the kernels' arithmetic on these tables.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+# F -> (radices of the passes, the first being M, the values a thread
+# holds; teams per symbol P; threads per block; blocks an SM should hold).
+# csrc/fft_warp.cuh's OFDM_WARP_PLAN lines hold the same table.
+PLANS = {
+    64: ((8, 8), 4, 128, 4),
+    128: ((16, 8), 4, 128, 4),
+    256: ((16, 16), 4, 128, 4),
+    512: ((32, 16), 4, 128, 2),
+    1024: ((32, 32), 4, 128, 2),
+    2048: ((32, 8, 8), 2, 128, 1),
+    4096: ((32, 16, 8), 2, 256, 1),
+}
+
+
+class Plan(NamedTuple):
+    fft_size: int
+    radices: Tuple[int, ...]
+    values: int            # M, complex values a thread holds
+    threads: int           # T = F / M, threads of a row's team
+    teams_per_symbol: int  # P: team p takes antennas p, p + P, ...
+    block: int             # threads per block
+    min_blocks: int        # blocks an SM should hold (__launch_bounds__)
+
+    @property
+    def symbols_per_block(self) -> int:
+        return self.block // (self.threads * self.teams_per_symbol)
+
+
+def plan(f: int) -> Plan:
+    if f not in PLANS:
+        raise ValueError(f"no register-FFT plan for F={f}; sizes {tuple(PLANS)}")
+    radices, teams, block, min_blocks = PLANS[f]
+    assert math.prod(radices) == f and max(radices) == radices[0]
+    return Plan(f, radices, radices[0], f // radices[0], teams, block, min_blocks)
+
+
+def strides(f: int) -> Tuple[int, ...]:
+    """Ns of each pass: the product of the radices before it."""
+    out, ns = [], 1
+    for r in plan(f).radices:
+        out.append(ns)
+        ns *= r
+    return tuple(out)
+
+
+def pass_twiddles_np(f: int) -> np.ndarray:
+    """[n, 2] float32 (cos, sin) for passes 1..: pass p's block starts after
+    the blocks of the passes before it and holds R Ns entries, entry
+    r Ns + c = exp(-2 pi i c r / (Ns R)), computed in float64."""
+    blocks = []
+    for radix, ns in zip(plan(f).radices[1:], strides(f)[1:]):
+        r, c = np.meshgrid(np.arange(radix), np.arange(ns), indexing="ij")
+        ang = -2.0 * np.pi * (c * r).astype(np.float64) / (ns * radix)
+        blocks.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1, 2))
+    return np.concatenate(blocks).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def pass_twiddles(f: int, device: torch.device) -> torch.Tensor:
+    """``pass_twiddles_np`` on the device: the table the kernels read."""
+    return torch.from_numpy(pass_twiddles_np(f)).to(device)
+
+
+def lane_bins(f: int) -> np.ndarray:
+    """[T, M]: the frequency bin that register m of thread j holds after the
+    last pass, j + T m."""
+    p = plan(f)
+    return np.arange(p.threads)[:, None] + p.threads * np.arange(p.values)[None, :]
+
+
+def exchange_slot(f: int, e):
+    """Float offset in an exchange plane of position e: one float of padding
+    after every M, which makes every pass's transpose free of bank
+    conflicts for the radices above."""
+    return e + e // plan(f).values
+
+
+def plane_floats(f: int) -> int:
+    """Floats of one exchange plane: every slot, rounded up to 16 bytes so the
+    im plane of a staged row starts 16-byte aligned."""
+    return -(-exchange_slot(f, f) // 4) * 4
+
+
+def smem_bytes(f: int) -> int:
+    """Dynamic shared memory of one block: the pass twiddles, then each
+    team's buffers."""
+    p = plan(f)
+    return 4 * (2 * len(pass_twiddles_np(f)) + p.block // p.threads * team_floats(f))
+
+
+def team_floats(f: int) -> int:
+    """Floats of a team's shared memory: two buffers of two planes, padded so
+    that the teams that share a warp (T < 32) start T banks apart."""
+    t = plan(f).threads
+    need = 4 * plane_floats(f)
+    return need + ((t - need) % 32 if t < 32 else 0)

@@ -24,7 +24,9 @@ from ..kernels import build
 from . import fft as fft_ops
 from . import mrc as mrc_ops
 from .cplx import CArray
-from .pipeline import _check_dense, _check_rows, _device_route, _scale, twiddles, widen_sc16
+from . import fft_plan
+from .pipeline import (_check_dense, _check_rows, _device_route, _rows_aligned, _scale,
+                       widen_sc16)
 
 MRC_DEMOD_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -76,9 +78,9 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
     with torch.cuda.device(dev):
         err = lib.ofdm_mrc_demod(
             y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
-            st[0], st[1], _scale(y), s, a, f,
+            int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,
             hconj.re.data_ptr(), hconj.im.data_ptr(), hsqrd.data_ptr(),
-            twiddles(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+            fft_plan.pass_twiddles(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "mrc_demod")
     launch_counts["mrc_demod"] += 1

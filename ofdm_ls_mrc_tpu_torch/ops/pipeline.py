@@ -34,6 +34,7 @@ import torch
 from ..golden.io import SC16_FULL_SCALE
 from ..kernels import build
 from . import fft as fft_ops
+from . import fft_plan
 from .cplx import CArray, cdiv
 from .modulate import drop_cyclic_prefix
 from .mrc import mrc_numerator
@@ -50,8 +51,9 @@ def reset_launch_counts() -> None:
 
 def supports_fused(fft_size: int) -> bool:
     """True when the fused kernels cover this FFT size: a power of two from
-    256 to 4096 (csrc/fft.cuh instantiates exactly these).  The TPU kernel's
-    rule (a (2^k, 128) split) admits the same sizes up to 4096."""
+    256 to 4096 (csrc/pilot_ls.cu and csrc/fft_mrc.cu instantiate exactly
+    these).  The TPU kernel's rule (a (2^k, 128) split) admits the same
+    sizes up to 4096."""
     return fft_size in FUSED_FFT_SIZES
 
 
@@ -140,6 +142,15 @@ def _scale(x: CArray) -> float:
     return 1.0 / SC16_FULL_SCALE if x.dtype == torch.int16 else 1.0
 
 
+def _rows_aligned(x: CArray) -> bool:
+    """True when every row of x starts 16-byte aligned (both bases and every
+    stride in bytes multiples of 16): the data kernels then stage rows with
+    16-byte cp.async copies, else element by element."""
+    size = x.re.element_size()
+    return all(t.data_ptr() % 16 == 0 for t in (x.re, x.im)) and all(
+        st * size % 16 == 0 for st in x.re.stride()[:-1])
+
+
 def estimate_pilot_fused(pilot: CArray, x_full: CArray) -> Tuple[CArray, torch.Tensor]:
     """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``.
 
@@ -212,9 +223,9 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor) -> CArray:
     with torch.cuda.device(dev):
         err = lib.ofdm_fft_mrc(
             y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
-            st[0], st[1], st[2], _scale(y), k, s, a, f,
+            int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
             h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
-            twiddles(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+            fft_plan.pass_twiddles(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "fft_mrc")
     launch_counts["fft_mrc"] += 1

@@ -25,6 +25,15 @@ pytestmark = pytest.mark.cuda
 
 TOL = 2e-5
 GEOMETRIES = [(256, 1, 5), (1024, 16, 101), (4096, 4, 9)]  # (F, antennas, symbols)
+# The data kernels' row mapping: every F of the size list, antenna counts
+# that leave teams without a row or give them several (1, 3, 5, 16, 64), one
+# data symbol (the streaming shape), and a ragged last block where a block
+# holds 2 symbols (F = 256, 512: an odd symbol count).
+FFT_MRC_GEOMETRIES = [(256, 1, 6), (512, 3, 4), (1024, 16, 101), (1024, 1, 3),
+                      (1024, 3, 2), (1024, 5, 6), (1024, 64, 5), (2048, 2, 4), (4096, 4, 9)]
+# Cyclic prefixes: 0 and 72 keep rows 16-byte aligned (cp.async loads); 1 and
+# 7 do not (the element-by-element load path).
+DATA_CPS = [0, 1, 7, 72]
 
 
 @pytest.fixture
@@ -67,8 +76,8 @@ def test_pilot_ls_kernel_matches_plain(dev, f, a, s, cp, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
-@pytest.mark.parametrize("cp", [0, 72])
-@pytest.mark.parametrize("f,a,s", GEOMETRIES)
+@pytest.mark.parametrize("cp", DATA_CPS)
+@pytest.mark.parametrize("f,a,s", FFT_MRC_GEOMETRIES)
 def test_fft_mrc_kernel_matches_plain(dev, f, a, s, cp, dtype):
     frame, pilot = frame_on(dev, f, a, s, cp, dtype)
     y = frame[..., cp:]
@@ -94,12 +103,18 @@ def test_receiver_on_card_matches_golden(dev):
     assert sim.evm_db(np.fft.fftshift(out, axes=-1), data) < -30.0
 
 
-@pytest.mark.parametrize("cp", [0, 72])
-def test_capture_is_one_launch_per_kernel(dev, cp):
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 1, 72])
+def test_capture_is_one_launch_per_kernel(dev, cp, dtype):
     rng = np.random.default_rng(8)
     cfg = FrameConfig(num_antennas=4, fft_size=1024, cyclic_prefix=cp, frame_len=9)
     shape = (3, 9, 4, 1024 + cp)
-    frames = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    if dtype == "int16":
+        frames = CArray(torch.from_numpy(golden.io.plane_to_sc16(0.1 * z.real)).to(dev),
+                        torch.from_numpy(golden.io.plane_to_sc16(0.1 * z.imag)).to(dev))
+    else:
+        frames = CArray.from_numpy(z.astype(np.complex64), dev)
     pilot = np.exp(2j * np.pi * rng.random(1023)).astype(np.complex64)
     rx = UplinkReceiver(cfg, pilot, device=dev)
     pipe.reset_launch_counts()
@@ -123,14 +138,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         pipe.fused_pipeline(frame[1:], h, inv[:-1])
 
 
-# (F, antennas, data symbols): the BASELINE 64-bin geometries, a ragged last
-# block of 8 symbols at F = 64, the main path's width, and the largest F.
-DEMOD_GEOMETRIES = [(64, 1, 9), (64, 4, 17), (128, 3, 10), (256, 5, 7),
-                    (1024, 16, 100), (4096, 2, 3)]
+# (F, antennas, data symbols): the BASELINE 64-bin geometries, ragged last
+# blocks (4 symbols a block at F = 64 and 128, 2 at 256 and 512), every F of
+# the size list, one data symbol, and 1, 3, 5, 16 and 64 antennas.
+DEMOD_GEOMETRIES = [(64, 1, 9), (64, 4, 17), (128, 3, 10), (256, 5, 7), (512, 3, 5),
+                    (1024, 16, 100), (1024, 1, 1), (1024, 64, 4), (2048, 3, 2),
+                    (4096, 2, 3)]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
-@pytest.mark.parametrize("cp", [0, 72])
+@pytest.mark.parametrize("cp", DATA_CPS)
 @pytest.mark.parametrize("f,a,s", DEMOD_GEOMETRIES)
 def test_mrc_demod_kernel_matches_plain(dev, f, a, s, cp, dtype):
     frame, pilot = frame_on(dev, f, a, s + 1, cp, dtype)
