@@ -9,15 +9,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    power limit; the card must be compute capability 9.0 (Hopper).
 2. build: compiles csrc/ with nvcc for sm_90a, one process per source, all
    at once (ptxas report printed, then the registers, spills and shared
-   memory of the two data kernels at F = 1024).
+   memory of the pilot and the two data kernels at F = 1024).
 3. kernels: each kernel against its plain PyTorch version on the card, max-rel
    below 2e-5 (both sides fp32 FFTs or sums taken in another order):
    pilot_ls, fft_mrc and mrc_demod at the main path's shapes (16 antennas x
    1024 bins, 101 symbols), f32 and int16 input, cyclic prefix 0 and 72
-   (rows 16-byte aligned: the data kernels' cp.async loads) and 1 (the
-   element-by-element loads);
-   mrc_demod also at F = 64, 4 antennas; the io probes auto, manual2 and
-   manual3s with compute 0 and 2 on one 16 x 1024 x 101 f32 frame.
+   (rows 16-byte aligned: the cp.async loads) and 1 (the element-by-element
+   loads); pilot_ls also at every F of 256-4096 x 1, 3, 5, 16 and 64
+   antennas, f32 and int16, cp 0, 1 and 72, 3 frames in one call (one
+   cluster each; the cluster shape is printed); mrc_demod also at F = 64,
+   4 antennas; the io probes auto, manual2, manual3s and manual4 with
+   compute 0 and 2 on one 16 x 1024 x 101 f32 frame, manual4 also at ts 1,
+   and manual2 and manual4s at ts 8 on a 4-antenna frame.
 4. main path: UplinkReceiver(16 x 1024, cp 72, 101 symbols, fused, cuda) on
    a 16-QAM frame through a 16-tap 25 dB channel: EVM below -30 dB, max-rel
    below 5e-5 against the NumPy golden, pilot_ls and fft_mrc launched.
@@ -28,14 +31,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    demod_frame, the fused body through pilot_ls and fft_mrc; per-symbol
    latency p50/p99 (CUDA events and host clock, device-resident symbols).
 7. probe path: tools/dma_probe over 20 device-resident 16 x 1024 x 101 f32
-   frames, each variant with compute 0 and 2; the fastest variant without
-   compute gives the measured io floor.
+   frames, auto, manual2, manual3s and manual4 with compute 0 and 2; the
+   fastest variant without compute gives the measured io floor.
 8. timing: each kernel, its plain version and the PyTorch library call
    (torch.fft.fft over the same rows for the FFT kernels, one torch.sum for
-   the probes) at the main path's shapes; demod_capture over 20
-   device-resident sc16 frames with the prefix stripped on the host
-   (bench.py's default mode, seed 0); fft_mrc on one 64-antenna frame
-   (64 x 1024 x 101, f32, cp 72).
+   the probes) at the main path's shapes; the profiler's split of one
+   estimate_pilot_fused call must hold one kernel; a within-call
+   comparison (X Y Y X) of io_auto against torch.sum; demod_capture
+   over 20 device-resident sc16 frames with the prefix stripped on the host
+   (bench.py's default mode, seed 0) and pilot_ls on its 20 pilots; fft_mrc
+   and pilot_ls on one 64-antenna frame (64 x 1024 x 101, f32, cp 72).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -57,7 +62,13 @@ import numpy as np
 
 ANTENNAS, FFT, SYMBOLS, CP = 16, 1024, 101, 72
 CAPTURE_FRAMES = 20
-PROBE_FRAMES, PROBE_TS, PROBE_VARIANTS = 20, 2, ("auto", "manual2", "manual3s")
+PROBE_FRAMES, PROBE_TS = 20, 2
+PROBE_VARIANTS = ("auto", "manual2", "manual3s", "manual4")
+# (variant, ts, antennas) of the probes' checks: ts 8 fits 227 KB only below
+# 16 antennas.
+PROBE_CHECKS = (("auto", 2, 16), ("manual2", 2, 16), ("manual3s", 2, 16), ("manual4", 2, 16),
+                ("manual4", 1, 16), ("manual2", 8, 4), ("manual4s", 8, 4))
+PILOT_ANTENNAS, PILOT_FRAMES = (1, 3, 5, 16, 64), 3
 STREAM_FRAMES = 3           # timed passes of the streaming path over the frame
 KERNEL_TOL = 2e-5
 GOLDEN_TOL = 5e-5
@@ -101,19 +112,27 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
 
 
 def ptxas_lines(report: str):
-    """One line per data-kernel instantiation at F = 1024 from nvcc's
-    -Xptxas -v report: registers, spills and the dynamic shared memory the
-    launch asks for (ops/fft_plan.py smem_bytes)."""
+    """One line per instantiation of the pilot and data kernels at F = 1024
+    from nvcc's -Xptxas -v report: registers, spills and the dynamic shared
+    memory the launch asks for (ops/fft_plan.py smem_bytes; for the pilot,
+    its plan at 16 antennas)."""
     from ofdm_ls_mrc_tpu_torch.ops import fft_plan
 
-    pat = (r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_kernelILi(\d+)E(\w)Lb(\d)E"
+    pat = (r"Compiling entry function "
+           r"'_ZN4ofdm\d+(fft_mrc|mrc_demod|pilot_ls)_kernelILi(\d+)E(\w)Lb(\d)E"
            r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers")
     for name, f, t, aligned, spill, regs in re.findall(pat, report, re.S):
-        if int(f) == 1024:
-            yield (f"ptxas {name}<{f}, {'int16' if t == 's' else 'float'}, "
-                   f"{'cp.async' if aligned == '1' else 'element'} loads>: {regs} registers, "
-                   f"{spill} B spilled, {fft_plan.smem_bytes(int(f))} B dynamic shared memory, "
-                   f"{fft_plan.plan(int(f)).block} threads a block")
+        f = int(f)
+        if f != 1024:
+            continue
+        if name == "pilot_ls":
+            plan = fft_plan.pilot_plan(ANTENNAS, f)
+            smem, threads = plan.smem_bytes, f"{plan.threads} threads a block (16 antennas)"
+        else:
+            smem, threads = fft_plan.smem_bytes(f), f"{fft_plan.plan(f).block} threads a block"
+        yield (f"ptxas {name}<{f}, {'int16' if t == 's' else 'float'}, "
+               f"{'cp.async' if aligned == '1' else 'element'} loads>: {regs} registers, "
+               f"{spill} B spilled, {smem} B dynamic shared memory, {threads}")
 
 
 def main() -> int:
@@ -127,7 +146,7 @@ def main() -> int:
     from ofdm_ls_mrc_tpu_torch.kernels import build
     from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
     from ofdm_ls_mrc_tpu_torch.ops import fft as fft_ops
-    from ofdm_ls_mrc_tpu_torch.ops import fused_mrc, ls
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc, ls
     from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
     from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
     from ofdm_ls_mrc_tpu_torch.tools import dma_probe
@@ -168,7 +187,7 @@ def main() -> int:
     print(ptxas.getvalue(), end="")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     summary = list(ptxas_lines(ptxas.getvalue()))
-    require(len(summary) == 8, f"ptxas report: {len(summary)} data kernels at F = 1024, want 8")
+    require(len(summary) == 12, f"ptxas report: {len(summary)} kernels at F = 1024, want 12")
     print("\n".join(summary))
 
     # -- 3. each kernel against its plain version ---------------------------
@@ -182,14 +201,29 @@ def main() -> int:
     def composed_estimate(pilot_rows, x_full):
         return ls.estimate_channel_full(fft_ops.fft(pipe.widen_sc16(pilot_rows)), x_full)
 
-    def check(name, label, pairs, abs_pairs=None):
+    def check(name, label, pairs, abs_pairs=None, quiet=False):
         """pairs: (kernel, plain) numpy arrays held to the max-rel bound;
-        max-abs over abs_pairs (the kernel's outputs), by default the same."""
+        max-abs over abs_pairs (the kernel's outputs), by default the same.
+        Returns the max-rel."""
         rel = max(max_rel(k, p) for k, p in pairs)
         err = max(max_abs(k, p) for k, p in (abs_pairs or pairs))
         errs_abs[name] = max(errs_abs[name], err)
-        print(f"check {name} {label}: max-rel {rel:.3e}  max-abs {err:.3e}")
+        if not quiet:
+            print(f"check {name} {label}: max-rel {rel:.3e}  max-abs {err:.3e}")
         require(rel < KERNEL_TOL, f"{name} {label}: max-rel {rel:.3e} >= {KERNEL_TOL}")
+        return rel
+
+    def check_pilot(label, y, x, quiet=False):
+        """estimate_pilot_fused against estimate_pilot_plain: max-rel on h
+        and sum_a|h|^2 (inv, its reciprocal, peaks at the weakest bin);
+        max-abs on the kernel's outputs, h and inv."""
+        h_k, inv_k = pipe.estimate_pilot_fused(y, x)
+        h_p, inv_p = pipe.estimate_pilot_plain(y, x)
+        torch.cuda.synchronize()
+        h_k, h_p = h_k.to_numpy(), h_p.to_numpy()
+        inv_k, inv_p = inv_k.cpu().numpy(), inv_p.cpu().numpy()
+        return check("pilot_ls", label, [(h_k, h_p), (1 / inv_k, 1 / inv_p)],
+                     [(h_k, h_p), (inv_k, inv_p)], quiet=quiet)
 
     errs_abs = {name: 0.0 for name in KERNELS}
     rng = np.random.default_rng(1)
@@ -200,7 +234,7 @@ def main() -> int:
             label = f"{dtype} cp={cp}"
             frame = frame_of(rng, (SYMBOLS, ANTENNAS, FFT + cp), dtype)
             y = frame[..., cp:]
-            h_k, inv_k = pipe.estimate_pilot_fused(y[0], x_full)
+            check_pilot(label, y[0], x_full)
             h_p, inv_p = pipe.estimate_pilot_plain(y[0], x_full)
             out_k = pipe.fused_pipeline(y[1:], h_p, inv_p)
             out_p = pipe.fused_pipeline_plain(y[1:], h_p, inv_p)
@@ -208,12 +242,21 @@ def main() -> int:
             eq_k = fused_mrc.fused_demod(y[1:], hconj, hsqrd)
             eq_p = fused_mrc.fused_demod_plain(y[1:], hconj, hsqrd)
             torch.cuda.synchronize()
-            # sum_a|h|^2: inv, its reciprocal, peaks at the weakest bin
-            inv_k, inv_p = inv_k.cpu().numpy(), inv_p.cpu().numpy()
-            check("pilot_ls", label, [(h_k.to_numpy(), h_p.to_numpy()), (1 / inv_k, 1 / inv_p)],
-                  [(h_k.to_numpy(), h_p.to_numpy()), (inv_k, inv_p)])
             check("fft_mrc", label, [(out_k.to_numpy(), out_p.to_numpy())])
             check("mrc_demod", label, [(eq_k.to_numpy(), eq_p.to_numpy())])
+    # pilot_ls at every F and cluster shape: PILOT_FRAMES pilots [K, A, F]
+    # read in place from frames of 2 symbols, one launch, one cluster each.
+    for f in pipe.FUSED_FFT_SIZES:
+        x_f = ls.pad_pilot(np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64), dev)
+        for a in PILOT_ANTENNAS:
+            plan = fft_plan.pilot_plan(a, f)
+            rels = [check_pilot(f"F={f} A={a} {dtype} cp={cp}",
+                                frame_of(rng, (PILOT_FRAMES, 2, a, f + cp), dtype)[:, 0, :, cp:],
+                                x_f, quiet=True)
+                    for dtype in ("f32", "int16") for cp in (0, 1, CP)]
+            print(f"check pilot_ls F={f} A={a}: cluster of {plan.clusters} blocks x "
+                  f"{plan.teams} teams x {plan.rows} rows, {PILOT_FRAMES} frames a call, "
+                  f"f32/int16 x cp 0/1/{CP}: max-rel {max(rels):.3e}")
     for dtype in ("f32", "int16"):  # the 64-bin geometry: 8 symbols a block
         frame = frame_of(rng, (SYMBOLS, 4, 64), dtype)
         small_x = ls.pad_pilot(pilot[:63], dev)
@@ -222,18 +265,20 @@ def main() -> int:
         eq_p = fused_mrc.fused_demod_plain(frame[1:], hconj, hsqrd)
         torch.cuda.synchronize()
         check("mrc_demod", f"F=64 A=4 {dtype}", [(eq_k.to_numpy(), eq_p.to_numpy())])
-    pre, pim, bias, wmat = dma_probe.make_frames(1, SYMBOLS, ANTENNAS, FFT, dev, seed=2)
-    bias = bias + 0.5
-    for variant in PROBE_VARIANTS:
+    probe_frames = {a: dma_probe.make_frames(1, SYMBOLS, a, FFT, dev, seed=2)
+                    for a in sorted({a for _, _, a in PROBE_CHECKS})}
+    for variant, ts, a in PROBE_CHECKS:
+        pre, pim, bias, wmat = probe_frames[a]
+        bias = bias + 0.5
         name = "io_manual" if variant.startswith("manual") else "io_auto"
         for compute in (0, 2):
             got = dma_probe.io_probe(pre[0], pim[0], bias, wmat, variant=variant,
-                                     ts=PROBE_TS, compute=compute)
+                                     ts=ts, compute=compute)
             want = dma_probe.io_probe_plain(pre[0], pim[0], bias, wmat, compute)
             torch.cuda.synchronize()
-            check(name, f"{variant} compute={compute}",
+            check(name, f"{variant} ts={ts} A={a} compute={compute}",
                   [(g.cpu().numpy(), w.cpu().numpy()) for g, w in zip(got, want)])
-    del pre, pim
+    del probe_frames, pre, pim
 
     # -- 4. the main path through the port ----------------------------------
     cfg = FrameConfig(num_antennas=ANTENNAS, fft_size=FFT, cyclic_prefix=CP,
@@ -361,9 +406,10 @@ def main() -> int:
 
     def device_ms(fn, n: int) -> dict:
         """Per call, the device time of each CUDA kernel it runs, by name
-        (torch.profiler); empty when the profiler saw no device activity in
-        three tries (it now and then returns a trace without the device's
-        events)."""
+        (torch.profiler); empty when the profiler gave no whole trace in
+        three tries (it now and then returns one without the device's
+        events, or with only some of the calls' kernels: a kernel seen a
+        number of times that is not a multiple of n)."""
         fn()
         torch.cuda.synchronize()
         for _ in range(3):
@@ -371,10 +417,10 @@ def main() -> int:
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-            split = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-            if split:
-                return split
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if events and all(e.count % n == 0 for e in events):
+                return {e.key: e.self_device_time_total / n / 1e3 for e in events}
         return {}
 
     def measure(kernel_fn, plain_fn, n: int, library_fn=None):
@@ -425,6 +471,12 @@ def main() -> int:
     del pilot_c, data_c
     for name, t in times.items():
         report(f"{name} (one frame, f32, cp {CP})", t)
+    pilot_split = times["pilot_ls"]["kernel_split"]
+    print(f"pilot_ls: the profiler's split of one estimate_pilot_fused call holds "
+          f"{len(pilot_split)} kernel(s): " + ", ".join(k[:60] for k in pilot_split))
+    require(len(pilot_split) <= 1,
+            f"one estimate_pilot_fused call ran {len(pilot_split)} kernels, want one")
+
     sd = StreamingDemodulator(cfg, pilot, pipeline="fused", device=dev)
     sd.push_pilot(frame_dev[0])
     split = device_ms(lambda: sd.push_symbol(frame_dev[1], slot=1), 100)
@@ -444,11 +496,23 @@ def main() -> int:
     plain_s = dma_probe.time_per_frame(
         lambda: dma_probe.io_probe_plain(sre, sim_, bias, wmat), PROBE_FRAMES, 10, 3)
     library_s = dma_probe.time_per_frame(lambda: torch.sum(y2, dim=2), PROBE_FRAMES, 10, 3)
-    del y2, yre, yim, sre, sim_
     ms["io_auto"] = (probe_s["auto", 0] * 1e3, plain_s * 1e3, library_s * 1e3)
     ms["io_manual"] = (probe_s[manual_variant, 0] * 1e3, plain_s * 1e3, library_s * 1e3)
     print(f"time io probes (per frame, 20 frames, compute 0): plain {plain_s * 1e6:.2f} us, "
           f"library torch.sum {library_s * 1e6:.2f} us  [{card}]")
+
+    def xyyx(fx, fy):
+        """us per frame over the batch, in the order X Y Y X."""
+        return [dma_probe.time_per_frame(fn, PROBE_FRAMES, 10, 3) * 1e6
+                for fn in (fx, fy, fy, fx)]
+
+    a1, s1, s2, a2 = xyyx(lambda: dma_probe.io_probe(sre, sim_, bias, wmat),
+                          lambda: torch.sum(y2, dim=2))
+    print(f"compare io_auto vs torch.sum (per frame, 20 frames, X Y Y X): auto {a1:.2f}, "
+          f"{a2:.2f} us; torch.sum {s1:.2f}, {s2:.2f} us; ratio of means "
+          f"{(a1 + a2) / (s1 + s2):.4f}  [{card}]")
+
+    del y2, yre, yim, sre, sim_
 
     # demod_capture: bench.py's default frames (seed 0, sc16, CP stripped on host).
     rng = np.random.default_rng(0)
@@ -476,7 +540,14 @@ def main() -> int:
     print(f"bound demod_capture: {cap_bytes / 1e6:.3f} MB a frame (sc16 in, f32 out) -> "
           f"{cap_bytes / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s, "
           f"{cap_bytes / io_floor * 1e6:.2f} us at the measured io floor  [{card}]")
-    del cap
+    # pilot_ls on the capture's 20 pilots: one launch, 20 clusters.
+    cap_pilot_c = torch.complex(cap[:, 0].re.float(), cap[:, 0].im.float())
+    t_cap_pilot = measure(lambda: pipe.estimate_pilot_fused(cap[:, 0], rx_cap.x_full),
+                          lambda: pipe.estimate_pilot_plain(cap[:, 0], rx_cap.x_full), 100,
+                          lambda: torch.fft.fft(cap_pilot_c, dim=-1))
+    report(f"pilot_ls ({CAPTURE_FRAMES} sc16 pilots of the capture, one launch)", t_cap_pilot,
+           CAPTURE_FRAMES)
+    del cap, cap_pilot_c
 
     # fft_mrc on a 64-antenna frame (64 x 1024 x 101, f32, cp 72).
     wide = frame_of(np.random.default_rng(3), (SYMBOLS, 64, FFT + CP), "f32")[..., CP:]
@@ -500,6 +571,19 @@ def main() -> int:
           f"{b64_ms * 1e3:.2f} us ({b64_by}) at the published peaks, "
           f"{b64 / io_floor * 1e6:.2f} us at the measured io floor; kernel "
           f"{k64_ms * 1e3:.2f} us  [{card}]")
+    # pilot_ls on the 64-antenna pilot: a cluster of 8 blocks x 4 teams x 2 rows.
+    wide_pc = torch.complex(wide[0].re.contiguous(), wide[0].im.contiguous())
+    t64p = measure(lambda: pipe.estimate_pilot_fused(wide[0], x_full),
+                   lambda: pipe.estimate_pilot_plain(wide[0], x_full), 200,
+                   lambda: torch.fft.fft(wide_pc, dim=-1))
+    del wide_pc
+    report("pilot_ls (one 64-antenna pilot, 64x1024 f32, cp 72)", t64p, antennas=64)
+    p64 = fft_plan.pilot_plan(64, FFT)
+    bp64_ms, bp64_by = bound_ms(64 * FFT * 16 + FFT * 12, fft_flops(64, FFT) + 15.0 * 64 * FFT)
+    kp64_ms = t64p["kernel_dev"] or t64p["kernel_call"]
+    print(f"bound pilot_ls 64 antennas: {bp64_ms * 1e3:.2f} us ({bp64_by}); kernel "
+          f"{kp64_ms * 1e3:.2f} us, cluster of {p64.clusters} blocks x {p64.teams} teams x "
+          f"{p64.rows} rows  [{card}]")
 
     # Work of each kernel at the timed shapes (f32 in, one frame; the probes
     # one frame of 101 symbols): each input read once, each output written once.
@@ -530,6 +614,10 @@ def main() -> int:
             rec["launches_streaming"] = stream_launches["fused"][name]
         if name == "fft_mrc":
             rec["ms_64_antennas"], rec["bound_ms_64_antennas"] = k64_ms, b64_ms
+        if name == "pilot_ls":
+            rec["ms_capture_per_frame"] = ((t_cap_pilot["kernel_dev"] or t_cap_pilot["kernel_call"])
+                                           / CAPTURE_FRAMES)
+            rec["ms_64_antennas"], rec["bound_ms_64_antennas"] = kp64_ms, bp64_ms
         records.append(rec)
         print(f"bound {name}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP -> "
               f"{b_ms * 1e3:.2f} us ({b_by}) at the published peaks, "

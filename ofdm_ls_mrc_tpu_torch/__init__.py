@@ -9,7 +9,8 @@ hold each copy equal to its original.  Entry points compute on the card
 (``device="cuda"``) unless the caller asks for the CPU.
 
 Layers (bottom-up):
-  csrc/     CUDA C++ kernels: block FFT (fft.cuh), pilot LS (pilot_ls.cu),
+  csrc/     CUDA C++ kernels: register FFT (fft_warp.cuh), pilot LS in one
+            thread block cluster per frame (pilot_ls.cu),
             FFT + MRC + reference-order store (fft_mrc.cu), split-phase
             FFT + MRC (mrc_demod.cu), input-delivery probes (io_probe.cu)
   kernels/  nvcc build of csrc/ into a ctypes-loaded library, at first use

@@ -1,7 +1,7 @@
 // Register FFT of antenna rows, with the antennas of a symbol spread over
 // teams of threads and the next row's load in flight during the current
-// row's FFT.  Shared by fft_mrc.cu and mrc_demod.cu (pilot_ls.cu keeps the
-// shared-memory Stockham FFT of fft.cuh).
+// row's FFT.  Shared by fft_mrc.cu and mrc_demod.cu (team_rows below) and
+// pilot_ls.cu (its own row loop on stage_row and row_fft).
 //
 // The FFT.  A team of T = F / M threads transforms one row; each thread
 // holds M complex values in registers.  The row goes through a mixed-radix

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C"): every pointer,
 # the stream included, is a c_void_p so none is cut to 32 bits.
 SIGNATURES = {
-    "ofdm_pilot_ls": (_P, _P, _I, _LL, _LL, _F, _I, _I, _I,
+    "ofdm_pilot_ls": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I, _I, _I, _I, _LL,
                       _P, _P, _P, _P, _P, _P, _P),
     "ofdm_fft_mrc": (_P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P),

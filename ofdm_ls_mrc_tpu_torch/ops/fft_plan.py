@@ -1,6 +1,7 @@
-"""The factorization that the data kernels' register FFT runs
-(``csrc/fft_warp.cuh``, used by ``csrc/fft_mrc.cu`` and ``csrc/mrc_demod.cu``),
-and the host tables it reads.
+"""The factorization that the kernels' register FFT runs
+(``csrc/fft_warp.cuh``, used by ``csrc/fft_mrc.cu``, ``csrc/mrc_demod.cu`` and
+``csrc/pilot_ls.cu``), the host tables it reads, and the pilot kernel's launch
+geometry (``pilot_plan``).
 
 A row of F samples is transformed by a team of T = F / M threads, each
 holding M complex values in registers.  The transform is a mixed-radix
@@ -134,3 +135,68 @@ def team_floats(f: int) -> int:
     t = plan(f).threads
     need = 4 * plane_floats(f)
     return need + ((t - need) % 32 if t < 32 else 0)
+
+
+# ---------------------------------------------------------------------------
+# The pilot kernel's launch geometry (csrc/pilot_ls.cu)
+# ---------------------------------------------------------------------------
+
+PILOT_FFT_SIZES = (256, 512, 1024, 2048, 4096)
+MAX_CLUSTER = 8             # the portable thread block cluster size
+
+
+class PilotPlan(NamedTuple):
+    clusters: int    # C: blocks of one frame's cluster (grid (C, K))
+    teams: int       # teams of one block
+    rows: int        # antenna rows of one team, at most
+    threads: int     # threads of one block: teams x T
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+def pilot_max_threads(f: int) -> int:
+    """Most threads a pilot block holds: 128, or two teams where a team is
+    more than 64 threads (F = 4096).  csrc/pilot_ls.cu pilot_max_threads
+    holds the same rule (its __launch_bounds__)."""
+    return max(128, 2 * plan(f).threads)
+
+
+def pilot_smem_bytes(f: int, teams: int) -> int:
+    """Each team's two buffers, X (two planes of F floats), then the block's
+    sum over its teams (F floats); the pilot reads the pass twiddles
+    through L1, not from shared memory."""
+    return 4 * (teams * team_floats(f) + 3 * f)
+
+
+@functools.lru_cache(maxsize=None)
+def pilot_plan(antennas: int, f: int) -> PilotPlan:
+    """Launch geometry of the pilot kernel for A antenna rows of F bins.
+
+    A cluster of C blocks per frame, each block as many one-row teams as its
+    thread cap allows, the cluster as large as the rows need up to the
+    portable 8; past 8 x teams rows a team takes several (A = 64 at F = 1024:
+    8 blocks x 4 teams x 2 rows).  Raises for a shape the kernel cannot
+    launch."""
+    if f not in PILOT_FFT_SIZES:
+        raise ValueError(f"pilot_plan: F={f} not in {PILOT_FFT_SIZES}")
+    if antennas < 1:
+        raise ValueError(f"pilot_plan: {antennas} antennas")
+    t = plan(f).threads
+    cap = pilot_max_threads(f) // t
+    clusters = min(MAX_CLUSTER, -(-antennas // cap))
+    teams = min(cap, -(-antennas // clusters))
+    rows = -(-antennas // (clusters * teams))
+    teams = -(-antennas // (clusters * rows))  # no team slot left idle per row
+    return PilotPlan(clusters, teams, rows, teams * t, pilot_smem_bytes(f, teams))
+
+
+def pilot_team_rows(antennas: int, p: PilotPlan, rank: int, team: int) -> range:
+    """Antenna rows of team ``team`` of block ``rank``: g, g + C teams, ...
+    below A, g = rank * teams + team (the kernel's row loop)."""
+    return range(rank * p.teams + team, antennas, p.clusters * p.teams)
+
+
+def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
+    """Bins whose sum over the cluster's blocks rank ``rank`` adds up (from
+    the blocks' shared memory) and whose inv it writes: [rank F / C,
+    (rank + 1) F / C)."""
+    return range(rank * f // clusters, (rank + 1) * f // clusters)

@@ -39,7 +39,8 @@ from .cplx import CArray, cdiv
 from .modulate import drop_cyclic_prefix
 from .mrc import mrc_numerator
 
-FUSED_FFT_SIZES = (256, 512, 1024, 2048, 4096)
+FUSED_FFT_SIZES = fft_plan.PILOT_FFT_SIZES
+MAX_FRAMES = 65535   # frames of one launch: the grid's second dimension
 
 launch_counts: Dict[str, int] = {"pilot_ls": 0, "fft_mrc": 0}
 
@@ -72,15 +73,6 @@ def widen_sc16(x: CArray) -> CArray:
     if x.dtype == torch.int16:
         return CArray(x.re.float() / SC16_FULL_SCALE, x.im.float() / SC16_FULL_SCALE)
     return x
-
-
-@functools.lru_cache(maxsize=None)
-def twiddles(f: int, device: torch.device) -> torch.Tensor:
-    """[F/2, 2] float32 (cos, sin) of -2*pi*m/F, computed in float64: the
-    table csrc/fft.cuh reads."""
-    ang = -2.0 * np.pi * np.arange(f // 2, dtype=np.float64) / f
-    tab = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return torch.from_numpy(tab).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +144,8 @@ def _rows_aligned(x: CArray) -> bool:
 
 
 def estimate_pilot_fused(pilot: CArray, x_full: CArray) -> Tuple[CArray, torch.Tensor]:
-    """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``.
+    """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``: one launch, one
+    thread block cluster per frame.
 
     Args:
       pilot:  [A, F] or [K, A, F] planes, f32 or int16 (sc16 full scale);
@@ -172,9 +165,15 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray) -> Tuple[CArray, torch.T
     k, a, f = p.shape
     if not supports_fused(f):
         raise ValueError(f"estimate_pilot_fused: F={f} not in {FUSED_FFT_SIZES}")
+    if k > MAX_FRAMES:
+        raise ValueError(f"estimate_pilot_fused: {k} frames in one call > {MAX_FRAMES}")
+    plan = fft_plan.pilot_plan(a, f)
     dev = p.device
     _check_dense(x_full.re, "x_full.re", (f,), dev)
     _check_dense(x_full.im, "x_full.im", (f,), dev)
+    if any(t.data_ptr() % 16 for t in (x_full.re, x_full.im)):
+        raise ValueError("estimate_pilot_fused: x_full planes must start 16-byte aligned "
+                         "(the kernel copies X in 16-byte chunks)")
     h = CArray(torch.empty((k, a, f), dtype=torch.float32, device=dev),
                torch.empty((k, a, f), dtype=torch.float32, device=dev))
     inv = torch.empty((k, f), dtype=torch.float32, device=dev)
@@ -182,8 +181,10 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray) -> Tuple[CArray, torch.T
     with torch.cuda.device(dev):
         err = lib.ofdm_pilot_ls(
             p.re.data_ptr(), p.im.data_ptr(), int(p.dtype == torch.int16),
-            p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
-            x_full.re.data_ptr(), x_full.im.data_ptr(), twiddles(f, dev).data_ptr(),
+            int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
+            plan.clusters, plan.teams, plan.rows, plan.smem_bytes,
+            x_full.re.data_ptr(), x_full.im.data_ptr(),
+            fft_plan.pass_twiddles(f, dev).data_ptr(),
             h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "pilot_ls")

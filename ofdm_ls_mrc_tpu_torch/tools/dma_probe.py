@@ -7,11 +7,15 @@ per symbol, for re and im (``csrc/io_probe.cu``):
 
   auto     -- a plain load-reduce-store kernel (the TPU's BlockSpec
               auto-pipelined input)
-  manualN  -- a persistent block per SM keeps an N-deep ring of
-              shared-memory slots filled by cp.async, issuing window w+N-1
-              before it reduces window w (N in 2, 3, 4)
-  manualNs -- the same with each window's copy split into one group per
-              symbol, each symbol reduced as soon as it lands
+  manualN  -- persistent blocks (one per SM) keep an N-deep ring of
+              shared-memory slots (N in 2, 3, 4): a producer lane refills a
+              slot with one TMA tensor copy a plane once its consumers
+              release it, the copies completing on the slot's "full"
+              mbarrier; the consumer warps wait on it, reduce, and release
+              the slot on its "empty" mbarrier (``ring_schedule`` mirrors the
+              order and the phases)
+  manualNs -- the same with one full barrier per symbol of the window, each
+              symbol reduced as soon as it lands (a copy a plane and symbol)
 
 ``--compute N`` adds N chained bf16 [R, 128] x [128, 128] products per
 window on the staged rows (CUDA cores, fp32 accumulation), 1e-9 of which
@@ -20,9 +24,9 @@ when the copies hide behind the compute, ~ io + compute when they
 serialize).
 
 A window is ts symbols x A antennas x 128 columns (whole 128-wide rows, the
-burn's width), ts*A KB per plane; the ring of depth N needs N*ts*A*2 KB of
-shared memory, at most 227 KB with the burn's 36 KB, so the default window
-is ts = 2 (16 antennas: 64 KB a slot).
+burn's width), ts*A/2 KB per plane; the ring of depth N needs N*ts*A KB of
+shared memory and its barriers, at most 227 KB with the burn's 36 KB, so
+the default window is ts = 2 (16 antennas: 32 KB a slot, every depth fits).
 
 Frames are made on the card and stay there.  One launch covers the whole
 batch as [K*S, A, F]: the probe's output is per symbol, so this is the
@@ -40,7 +44,7 @@ import argparse
 import re
 import subprocess
 import sys
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +55,7 @@ COLS = 128                # column tile: one burn row
 TS_CHOICES = (1, 2, 4, 8)
 DEPTHS = (2, 3, 4)
 SMEM_LIMIT = 232448       # bytes of shared memory a block may opt in to
+MAX_BOX = 256             # elements of a TMA box along one dimension (the antennas)
 BURN_SCALE = 1e-9
 _VARIANT = re.compile(r"^(auto|manual([234])(s?))$")
 
@@ -73,13 +78,33 @@ def parse_variant(variant: str) -> Tuple[int, bool]:
     return int(m.group(2)), m.group(3) == "s"
 
 
+def ring_barrier_bytes(depth: int, ts: int, per_symbol: bool) -> int:
+    """The ring's mbarriers, 8 bytes each: per stage one "full" barrier (one
+    per symbol in the "s" form) and one "empty", rounded up to 128 bytes
+    (the tensor copies' alignment of the ring after them)."""
+    return -(-depth * ((ts if per_symbol else 1) + 1) * 8 // 128) * 128
+
+
 def smem_bytes(variant: str, ts: int, antennas: int, compute: int) -> int:
     """Dynamic shared memory of one block of the variant's kernel."""
-    depth, _ = parse_variant(variant)
+    depth, per_symbol = parse_variant(variant)
     rows = depth * 2 * ts * antennas * COLS * 4 if depth else (
         antennas * COLS * 4 if compute else 0)
     burn = COLS * COLS * 2 + 4 * COLS * 4 + (ts if depth else 1) * COLS * 4
-    return rows + (burn if compute else 0)
+    bars = ring_barrier_bytes(depth, ts, per_symbol) if depth else 0
+    return bars + rows + (burn if compute else 0)
+
+
+def ring_schedule(block: int, grid: int, items: int, depth: int) -> List[Tuple[int, int, int]]:
+    """(item, stage, parity) of each item that block ``block`` of a
+    persistent grid of ``grid`` handles, in order: the it-th is item
+    block + it * grid, in ring stage it % depth, whose full barriers the
+    consumers wait on with parity (it // depth) % 2 and whose empty barrier
+    the producer waits on with the other parity before refilling it (so the
+    first depth waits pass at once).  csrc/io_probe.cu io_manual_kernel runs
+    this schedule."""
+    mine = (items - 1 - block) // grid + 1 if block < items else 0
+    return [(block + it * grid, it % depth, (it // depth) & 1) for it in range(mine)]
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +145,8 @@ def _check_input(t: torch.Tensor, name: str, shape, device: torch.device) -> Non
 
 
 def io_probe(yre: torch.Tensor, yim: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
-             *, variant: str = "auto", ts: int = 2, compute: int = 0
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             *, variant: str = "auto", ts: int = 2,
+             compute: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Data symbols through a probe kernel, ``csrc/io_probe.cu``.
 
     Args:
@@ -147,6 +172,9 @@ def io_probe(yre: torch.Tensor, yim: torch.Tensor, bias: torch.Tensor, w: torch.
         raise ValueError(f"io_probe: compute={compute} < 0")
     if depth and (ts not in TS_CHOICES or ts > s):
         raise ValueError(f"io_probe: ts={ts} must be in {TS_CHOICES} and at most S={s}")
+    if depth and a > MAX_BOX:
+        raise ValueError(f"io_probe: {variant} copies all {a} antennas in one TMA box, "
+                         f"at most {MAX_BOX}")
     smem = smem_bytes(variant, ts, a, compute)
     if smem > SMEM_LIMIT:
         raise ValueError(f"io_probe: {variant} at ts={ts}, {a} antennas, compute="
@@ -166,8 +194,8 @@ def io_probe(yre: torch.Tensor, yim: torch.Tensor, bias: torch.Tensor, w: torch.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if depth:
-            err = lib.ofdm_io_manual(*ptrs, depth, ts, int(per_symbol),
-                                     out_re.data_ptr(), out_im.data_ptr(), stream)
+            err = lib.ofdm_io_manual(*ptrs, depth, ts, int(per_symbol), out_re.data_ptr(),
+                                     out_im.data_ptr(), stream)
         else:
             err = lib.ofdm_io_auto(*ptrs, out_re.data_ptr(), out_im.data_ptr(), stream)
     name = "io_manual" if depth else "io_auto"

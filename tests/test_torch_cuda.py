@@ -16,7 +16,7 @@ import torch
 
 from ofdm_ls_mrc_tpu_torch import FrameConfig, golden, sim
 from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
-from ofdm_ls_mrc_tpu_torch.ops import fused_mrc, ls
+from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc, ls
 from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
 from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 from ofdm_ls_mrc_tpu_torch.tools import dma_probe
@@ -24,7 +24,13 @@ from ofdm_ls_mrc_tpu_torch.tools import dma_probe
 pytestmark = pytest.mark.cuda
 
 TOL = 2e-5
-GEOMETRIES = [(256, 1, 5), (1024, 16, 101), (4096, 4, 9)]  # (F, antennas, symbols)
+# The pilot kernel's clusters (F, antennas): every F, antenna counts that
+# give one block (1, 3), several blocks with idle teams (5), the main path's
+# 4 x 4 teams (16), several rows a team (64), and teams of 16 lanes (256,
+# 512) and of four warps (4096).
+PILOT_GEOMETRIES = [(256, 1), (256, 5), (256, 16), (512, 3), (1024, 1), (1024, 3),
+                    (1024, 5), (1024, 16), (1024, 64), (2048, 16), (4096, 5), (4096, 16),
+                    (4096, 64)]
 # The data kernels' row mapping: every F of the size list, antenna counts
 # that leave teams without a row or give them several (1, 3, 5, 16, 64), one
 # data symbol (the streaming shape), and a ragged last block where a block
@@ -59,20 +65,64 @@ def frame_on(dev, f, a, s, cp, dtype, seed=0):
     return frame, pilot
 
 
+@pytest.mark.parametrize("frames", [1, 3])
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
-@pytest.mark.parametrize("cp", [0, 72])
-@pytest.mark.parametrize("f,a,s", GEOMETRIES)
-def test_pilot_ls_kernel_matches_plain(dev, f, a, s, cp, dtype):
-    frame, pilot = frame_on(dev, f, a, s, cp, dtype)
+@pytest.mark.parametrize("cp", DATA_CPS)
+@pytest.mark.parametrize("f,a", PILOT_GEOMETRIES)
+def test_pilot_ls_kernel_matches_plain(dev, f, a, cp, dtype, frames):
+    """K pilot rows [K, A, F] read in place from K frames of 2 symbols, one
+    launch (K clusters)."""
+    rows, pilot = frame_on(dev, f, 2 * a * frames, 1, cp, dtype)
+    y = CArray(rows.re.reshape(frames, 2, a, f + cp), rows.im.reshape(frames, 2, a, f + cp))
+    y = y[:, 0, :, cp:]
     x_full = ls.pad_pilot(pilot, dev)
-    y = frame[..., cp:]
     before = pipe.launch_counts["pilot_ls"]
-    h, inv = pipe.estimate_pilot_fused(y[0], x_full)
-    h_p, inv_p = pipe.estimate_pilot_plain(y[0], x_full)
+    h, inv = pipe.estimate_pilot_fused(y, x_full)
+    h_p, inv_p = pipe.estimate_pilot_plain(y, x_full)
     torch.cuda.synchronize()
     assert pipe.launch_counts["pilot_ls"] == before + 1
+    assert h.shape == (frames, a, f) and inv.shape == (frames, f)
     assert max_rel(h.to_numpy(), h_p.to_numpy()) < TOL
     assert max_rel(1 / inv.cpu().numpy(), 1 / inv_p.cpu().numpy()) < TOL
+
+
+def test_pilot_ls_refuses_a_plan_off_its_layout(dev):
+    """The C entry point checks the geometry it is given against the
+    kernel's own layout: pilot_plan's passes, a wrong row count, shared
+    memory size or cluster size returns cudaErrorInvalidValue (1)."""
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    frame, pilot = frame_on(dev, 1024, 16, 1, 0, "f32")
+    x_full = ls.pad_pilot(pilot, dev)
+    y = frame[0]
+    h = torch.empty((2, 16, 1024), device=dev)
+    inv = torch.empty(1024, device=dev)
+    lib = build.load_library()
+    tw = fft_plan.pass_twiddles(1024, dev)
+
+    def launch(p):
+        return lib.ofdm_pilot_ls(
+            y.re.data_ptr(), y.im.data_ptr(), 0, 1, 0, y.re.stride(0), 1.0, 1, 16, 1024,
+            p.clusters, p.teams, p.rows, p.smem_bytes, x_full.re.data_ptr(),
+            x_full.im.data_ptr(), tw.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), inv.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    plan = fft_plan.pilot_plan(16, 1024)
+    assert launch(plan) == 0
+    for bad in (plan._replace(rows=2), plan._replace(smem_bytes=plan.smem_bytes + 16),
+                fft_plan.PilotPlan(9, 2, 1, 64, fft_plan.pilot_smem_bytes(1024, 2))):
+        assert launch(bad) == 1
+    torch.cuda.synchronize()
+
+
+def test_pilot_ls_rejects_what_the_plan_cannot_launch(dev):
+    rows, pilot = frame_on(dev, 128, 4, 1, 0, "f32")
+    with pytest.raises(ValueError, match="F=128"):
+        pipe.estimate_pilot_fused(rows[0], ls.pad_pilot(pilot, dev))
+    rows, pilot = frame_on(dev, 256, 4, 1, 0, "f32")
+    many = CArray(rows.re.expand(65536, 4, 256), rows.im.expand(65536, 4, 256))
+    with pytest.raises(ValueError, match="frames"):
+        pipe.estimate_pilot_fused(many, ls.pad_pilot(pilot, dev))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
@@ -198,11 +248,14 @@ def test_streaming_on_card_matches_demod_frame(dev, pipeline, dtype):
 
 
 # (variant, ts, S, antennas, F): the main path's frame, a ragged last window
-# at a small shape, and each window height.
+# at a small shape, and each window height and depth in both forms.
 PROBE_CASES = [("auto", 2, 101, 16, 1024), ("manual2", 2, 101, 16, 1024),
-               ("manual3s", 2, 101, 16, 1024), ("manual3", 2, 5, 3, 256),
-               ("manual2s", 1, 7, 4, 512), ("manual4", 4, 9, 2, 128),
-               ("manual2s", 8, 11, 1, 256), ("auto", 2, 5, 3, 256)]
+               ("manual3s", 2, 101, 16, 1024), ("manual4", 2, 101, 16, 1024),
+               ("manual4", 1, 101, 16, 1024), ("manual3s", 1, 101, 16, 1024),
+               ("manual3", 2, 5, 3, 256), ("manual2s", 1, 7, 4, 512),
+               ("manual4", 4, 9, 2, 128), ("manual2s", 8, 11, 1, 256),
+               ("manual4s", 8, 17, 4, 512), ("manual2", 8, 9, 2, 256),
+               ("auto", 2, 5, 3, 256)]
 
 
 @pytest.mark.parametrize("compute", [0, 2])

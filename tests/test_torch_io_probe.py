@@ -50,7 +50,7 @@ SHAPE = (5, 3, 2, 128, 2)
 
 
 @pytest.mark.parametrize("compute", [0, 2])
-@pytest.mark.parametrize("variant", ["auto", "manual2", "manual3s"])
+@pytest.mark.parametrize("variant", ["auto", "manual2", "manual3s", "manual4", "manual2s"])
 def test_probe_matches_jax_kernel(variant, compute):
     s, a, n1, n2, ts = SHAPE
     yre, yim, bias, w = planes(s, a, n1, n2, seed=compute)
@@ -104,20 +104,148 @@ def test_probe_rejects_what_the_kernels_do_not_take():
         dma_probe.io_probe(y[:1], y[:1], b, w, variant="manual2", ts=2)
     with pytest.raises(ValueError, match="multiple of 128"):
         dma_probe.io_probe(y[..., :100], y[..., :100], b[:100], w)
+    wide = torch.zeros((2, 257, 128))   # the antennas of a window are one TMA box
+    with pytest.raises(ValueError, match="TMA box"):
+        dma_probe.io_probe(wide, wide, b[:128], w, variant="manual2", ts=1)
 
 
 def test_shared_memory_sizes():
-    """The Python side's sizes follow the kernels' layout: ring slots of
-    2 planes x ts x A x 128 floats, plus the burn's bf16 W, row buffers and
-    per-symbol sums."""
+    """The Python side's sizes follow the kernels' layout: the ring's
+    mbarriers (8 bytes each: per stage one full barrier, or one per symbol
+    in the "s" form, and one empty barrier; rounded up to 128 bytes), ring
+    slots of 2 planes x ts x A x 128 floats, plus the burn's bf16 W, row
+    buffers and per-symbol sums."""
     burn = 128 * 128 * 2 + 4 * 128 * 4
     assert dma_probe.smem_bytes("auto", 2, 16, 0) == 0
     assert dma_probe.smem_bytes("auto", 2, 16, 2) == 16 * 512 + burn + 512
-    assert dma_probe.smem_bytes("manual3", 2, 16, 0) == 3 * 2 * 2 * 16 * 512
-    assert dma_probe.smem_bytes("manual2s", 4, 8, 1) == 2 * 2 * 4 * 8 * 512 + burn + 4 * 512
-    # The tool's default window fits every depth with the burn at 16 antennas.
+    assert dma_probe.ring_barrier_bytes(3, 2, False) == 128         # 3 full + 3 empty: 48
+    assert dma_probe.ring_barrier_bytes(2, 4, True) == 128          # 2 x 4 full + 2 empty: 80
+    assert dma_probe.ring_barrier_bytes(4, 8, True) == 384          # 4 x 8 full + 4 empty: 288
+    assert dma_probe.ring_barrier_bytes(3, 8, True) == 256          # 3 x 8 full + 3 empty: 216
+    assert dma_probe.smem_bytes("manual3", 2, 16, 0) == 128 + 3 * 2 * 2 * 16 * 512
+    assert dma_probe.smem_bytes("manual2s", 4, 8, 1) == (128 + 2 * 2 * 4 * 8 * 512 + burn
+                                                         + 4 * 512)
+    # The tool's default window fits every depth with the burn at 16
+    # antennas; ts = 8 (128 KB a slot) fits none.
     for depth in dma_probe.DEPTHS:
         assert dma_probe.smem_bytes(f"manual{depth}", 2, 16, 2) <= dma_probe.SMEM_LIMIT
+    assert dma_probe.smem_bytes("manual2", 8, 16, 0) > dma_probe.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# The ring's schedule and barriers (csrc/io_probe.cu io_manual_kernel)
+# ---------------------------------------------------------------------------
+
+class MBarrier:
+    """An mbarrier as PTX defines it: a phase completes when its pending
+    arrivals and its transaction bytes both reach zero, which re-arms the
+    arrivals; a wait on parity P passes once the last phase of parity P has
+    completed, that is while the current phase's parity is not P."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, expect_tx=0):
+        self.tx += expect_tx
+        self.pending -= 1
+        assert self.pending >= 0, "more arrivals than the barrier counts"
+        self._complete()
+
+    def complete_tx(self, nbytes):
+        self.tx -= nbytes
+        self._complete()
+
+    def _complete(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passed(self, parity):
+        return (self.phase & 1) != parity
+
+
+def run_block(block, grid, items, depth, ts, per_symbol, antennas, warps, rng):
+    """One block of the kernel, its producer lane, its consumer warps and
+    its copies in flight stepped in a random order; returns the items each
+    warp reduced, asserting on the way that every read follows its full
+    barrier and every refill its empty barrier."""
+    sched = dma_probe.ring_schedule(block, grid, items, depth)
+    nfull = ts if per_symbol else 1
+    full = [[MBarrier(1) for _ in range(nfull)] for _ in range(depth)]
+    empty = [MBarrier(warps) for _ in range(depth)]
+    slot = [np.full((ts, 2, antennas), -1) for _ in range(depth)]
+    released = np.zeros((depth, warps), int)   # uses of a stage each warp has released
+    copies = []                                # in flight: (stage, symbols, plane, item, barrier)
+    reduced = [[] for _ in range(warps)]
+
+    def producer():
+        for it, (item, s, parity) in enumerate(sched):
+            yield lambda s=s, parity=parity: empty[s].passed(parity ^ 1)
+            use = it // depth
+            assert np.all(released[s] == use), "refill before every warp released the slot"
+            for b, bar in enumerate(full[s]):    # arm, then one copy a plane
+                bar.arrive(expect_tx=(ts // nfull) * 2 * antennas * 512)
+                syms = [b] if per_symbol else list(range(ts))
+                for plane in range(2):
+                    copies.append((s, syms, plane, item, bar))
+
+    def consumer(w):
+        for it, (item, s, parity) in enumerate(sched):
+            for k in range(ts):
+                bar = full[s][k if per_symbol else 0]
+                if per_symbol or k == 0:
+                    yield lambda bar=bar, parity=parity: bar.passed(parity)
+                assert np.all(slot[s][k] == item), "read before the symbol landed"
+            reduced[w].append(item)
+            yield lambda: True                 # the reduce (and burn) in progress
+            assert np.all(slot[s] == item), "slot overwritten while it was read"
+            released[s, w] += 1
+            empty[s].arrive()
+
+    actors = [producer()] + [consumer(w) for w in range(warps)]
+    waits = [lambda: True] * len(actors)
+    while actors or copies:
+        ready = [i for i, cond in enumerate(waits) if cond()]
+        choices = [("actor", i) for i in ready] + [("copy", i) for i in range(len(copies))]
+        assert choices, "deadlock"
+        kind, i = choices[rng.integers(len(choices))]
+        if kind == "copy":
+            s, syms, plane, item, bar = copies.pop(i)
+            slot[s][syms, plane, :] = item
+            bar.complete_tx(len(syms) * antennas * 512)
+            continue
+        try:
+            waits[i] = next(actors[i])
+        except StopIteration:
+            del actors[i], waits[i]
+    return reduced
+
+
+@pytest.mark.parametrize("per_symbol", [False, True])
+@pytest.mark.parametrize("depth", dma_probe.DEPTHS)
+def test_ring_schedule_and_barriers(depth, per_symbol):
+    """A Python mirror of the kernel's ring for every window height: each
+    item's stage and phase parity, every read after its full barrier, every
+    refill after its empty barrier, and each item reduced once, over a
+    ragged item count across blocks (23 items on 4 blocks)."""
+    rng = np.random.default_rng(10 * depth + per_symbol)
+    items, grid, warps, antennas = 23, 4, 3, 2
+    for ts in dma_probe.TS_CHOICES:
+        done = []
+        for block in range(grid):
+            sched = dma_probe.ring_schedule(block, grid, items, depth)
+            for it, (item, stage, parity) in enumerate(sched):
+                assert item == block + it * grid
+                assert (stage, parity) == (it % depth, (it // depth) % 2)
+            reduced = run_block(block, grid, items, depth, ts, per_symbol, antennas, warps, rng)
+            assert all(r == [item for item, _, _ in sched] for r in reduced)
+            done += reduced[0]
+        assert sorted(done) == list(range(items)), ts
+
+
+def test_ring_schedule_of_a_block_past_the_items_is_empty():
+    assert dma_probe.ring_schedule(5, 4, 3, 2) == []
+    assert dma_probe.ring_schedule(0, 132, 1, 3) == [(0, 0, 0)]
 
 
 def test_tool_needs_a_card(monkeypatch, capsys):

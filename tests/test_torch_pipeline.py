@@ -160,13 +160,6 @@ def test_supports_fused(f):
     assert pipe.supports_fused(f) == (jpp.supports_fused(f) and f <= 4096)
 
 
-def test_twiddle_table_is_float64_grade():
-    tw = pipe.twiddles(1024, torch.device("cpu")).numpy()
-    want = np.exp(-2j * np.pi * np.arange(512) / 1024)
-    assert tw.dtype == np.float32 and tw.shape == (512, 2)
-    assert np.max(np.abs(tw[:, 0] + 1j * tw[:, 1] - want)) < 1e-7
-
-
 def test_convert_defaults_to_the_card(monkeypatch):
     """Every convert helper puts its tensors on the card unless asked for
     the CPU, and raises where there is no card."""
