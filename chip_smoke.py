@@ -150,6 +150,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
    GEMMs, no kernel of the repo) beside the fused receiver: within 5e-5
    max-rel of the golden, device and per-call times (no claim of speed).
 
+15. the large-F geometry (DVB-T2's 8K, 16K and 32K modes), for F = 8192,
+   16384 and 32768 each: a 16 x F x 101 f32 frame, cp 72 F / 1024, 16-QAM
+   through a 16-tap 25 dB channel, every kernel against its plain version
+   (pilot_ls, its sum variant, fft_mrc and mrc_demod below 2e-5 max-rel;
+   pilot_ls_bf16 and fft_mrc_bf16 by phase 14's criteria), also on the
+   capture and, at 8192, on int16 rows at an odd offset (the element
+   loads); then the paths, each with counts set to 0 just before and read
+   just after, no fallback RuntimeWarning: UplinkReceiver(fused)
+   demod_frame (EVM below -30 dB against the sent symbols, within 5e-5 of
+   the golden), demod_parts, the split phase (mrc_demod), exact=False
+   (EVM at most -35 dB against the golden) and its demod_parts, the fused
+   StreamingDemodulator (1 and 100 launches), ShardedUplinkReceiver exact
+   and exact=False and ShardedStreamingDemodulator at world size 1 over
+   NCCL (pilot_ls_sum), demod_capture exact and bf16 over a device-made
+   sc16 capture, cp stripped (20 frames at 8192, 10 at 16384, 5 at 32768:
+   1.06 GB each); each kernel's device time on the frame beside its plain
+   version, torch.fft.fft of its rows and its bound (3.35 TB/s and the
+   measured io floor), the capture's per frame, and the ptxas lines of
+   every new instantiation (30); then ``demod_app --fft-size 8192
+   --sc16-native``, exact and ``--kernel-precision bf16``, whole frame on a
+   ring of 4 sc16 frames (every index line clean, 4/4 launches).
+
 The second-to-last lines are the kernels' JSON record (with the live path's
 and the three processes' launches; each record's ``time_source`` says where
 each of its times comes from: torch.profiler device time, from a trace shown
@@ -251,6 +273,19 @@ SPEED_REL = 1e-2             # and max-rel against the plain version under this
 SPEED_GOLDEN_EVM_DB = -35.0  # the speed mode against the golden (the sweep's bf16 bound)
 SPEED_PER_SYMBOL_FRAMES = 5  # frames of the app's per-symbol bf16 run
 SPEED_OTHER_FFT = (256, 4096)  # the kernels' end sizes, held and timed beside F = 1024
+# Phase 15, the large-F geometry (DVB-T2's 8K, 16K and 32K modes): F -> the
+# frames of its sc16 capture (1.06 GB each: 20 frames at 8192, fewer above).
+LARGE_FFT = {8192: 20, 16384: 10, 32768: 5}
+LARGE_KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "pilot_ls": KERNELS["pilot_ls"],
+    "pilot_ls_sum": KERNELS["pilot_ls"],
+    "fft_mrc": KERNELS["fft_mrc"],
+    "mrc_demod": KERNELS["mrc_demod"],
+    "pilot_ls_bf16": SPEED_KERNELS["pilot_ls_bf16"][:2],
+    "fft_mrc_bf16": SPEED_KERNELS["fft_mrc_bf16"][:2],
+}
+LARGE_REPS = 5               # calls of each timing at phase 15's sizes
+LARGE_APP_FFT, LARGE_APP_FRAMES = 8192, 4   # phase 15's demod_app run
 
 
 def small_records():
@@ -352,25 +387,25 @@ def probe_ptxas_lines(report: str):
 
 
 def live_frames(golden, sim, pilot, frames=LIVE_FRAMES, antennas=ANTENNAS, seed=11,
-                channel_seed=9):
+                channel_seed=9, f=FFT, cp=CP):
     """``frames`` distinct received frames as the ring's sc16 wire samples
     [n, S, A, 2 (F + CP)], the data each carries, and the golden demod of
     the quantized samples the app reads."""
     rng = np.random.default_rng(seed)
-    channel = sim.ChannelModel(antennas, FFT, num_taps=16, snr_db=25.0, seed=channel_seed)
+    channel = sim.ChannelModel(antennas, f, num_taps=16, snr_db=25.0, seed=channel_seed)
     wire, sent, gold = [], [], []
     for _ in range(frames):
-        data, _ = sim.random_symbols(rng, (SYMBOLS - 1, FFT - 1), "16qam")
-        rx = LIVE_GAIN * channel.apply(sim.make_tx_frame(data, pilot, CP), CP)
+        data, _ = sim.random_symbols(rng, (SYMBOLS - 1, f - 1), "16qam")
+        rx = LIVE_GAIN * channel.apply(sim.make_tx_frame(data, pilot, cp), cp)
         iq = golden.io.complex_to_sc16(rx)
         wire.append(iq)
         sent.append(data)
         gold.append(golden.demod_frame(golden.io.sc16_to_complex(iq).reshape(rx.shape),
-                                       pilot, CP))
+                                       pilot, cp))
     return np.stack(wire), np.stack(sent), np.stack(gold)
 
 
-def run_live_app(flags, wire, pilot_path: str, out: str, stderr: bool = False):
+def run_live_app(flags, wire, pilot_path: str, out: str, stderr: bool = False, f=FFT, cp=CP):
     """Be the ring master for one demod_app run: start the app as the
     slave, write every frame with backpressure, wait for the app; returns
     its standard output (and its standard error when asked).  Stops the app
@@ -378,10 +413,10 @@ def run_live_app(flags, wire, pilot_path: str, out: str, stderr: bool = False):
     from ofdm_ls_mrc_tpu_torch.io.ring import SymbolRing
 
     uid = f"/ofdm_smoke_{uuid.uuid4().hex[:10]}"
-    master = SymbolRing(uid, ANTENNAS, FFT + CP, SYMBOLS, master=True, timeout=120.0,
+    master = SymbolRing(uid, ANTENNAS, f + cp, SYMBOLS, master=True, timeout=120.0,
                         dtype="sc16")
     cmd = [sys.executable, "-m", "ofdm_ls_mrc_tpu_torch.apps.demod_app", "--shm-uid", uid,
-           "--antennas", str(ANTENNAS), "--fft-size", str(FFT), "--cp-size", str(CP),
+           "--antennas", str(ANTENNAS), "--fft-size", str(f), "--cp-size", str(cp),
            "--frame-len", str(SYMBOLS), "--ring-dtype", "sc16", "--num-frames", str(len(wire)),
            "--pilots", pilot_path, "--output", out, "--timeout", "120", *flags]
     errors = []
@@ -415,7 +450,7 @@ def run_live_app(flags, wire, pilot_path: str, out: str, stderr: bool = False):
 
 
 def check_live(label, stdout, out, sent, gold, want_launches, card, golden, sim,
-               kernels=("pilot_ls", "fft_mrc"), gold_evm_max=None) -> dict:
+               kernels=("pilot_ls", "fft_mrc"), gold_evm_max=None, f=FFT) -> dict:
     """Print the app's output and hold what it wrote to the golden, the
     sent data, the index contract and the launch counts of ``kernels``.
     With ``gold_evm_max`` (the speed mode) the golden bound is that EVM in
@@ -423,10 +458,10 @@ def check_live(label, stdout, out, sent, gold, want_launches, card, golden, sim,
     frames = len(sent)
     for line in stdout.splitlines():
         print(f"app {label}: {line}  [{card}]")
-    got = golden.read_output(out, FFT - 1)
-    require(got.shape == (frames * (SYMBOLS - 1), FFT - 1) and np.all(np.isfinite(got)),
+    got = golden.read_output(out, f - 1)
+    require(got.shape == (frames * (SYMBOLS - 1), f - 1) and np.all(np.isfinite(got)),
             f"live {label}: output shape {got.shape}")
-    got = got.reshape(frames, SYMBOLS - 1, FFT - 1)
+    got = got.reshape(frames, SYMBOLS - 1, f - 1)
     rel = max(max_rel(got[k], gold[k]) for k in range(frames))
     evm = sim.evm_db(np.fft.fftshift(got, axes=-1), sent)
     index = open(out + ".index").read().splitlines()
@@ -1473,6 +1508,363 @@ def speed_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, 
     return rec, records
 
 
+def large_ptxas_lines(report: str):
+    """Registers, spills and the launch's dynamic shared memory of every
+    instantiation of phase 15's geometry from nvcc's -Xptxas -v report: the
+    exact kernels at F = 8192 (the register FFT), the split form's column
+    pass and row passes (F = 16384 and 32768 exact, 8192-32768 bf16)."""
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan
+
+    yield from ptxas_lines(report, (8192,), ("fft_mrc", "mrc_demod", "pilot_ls"), ANTENNAS)
+    tail = r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers"
+    teams = fft_plan.split_teams(ANTENNAS)
+    for name, n1, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod|pilot_ls)_rows_kernel"
+            r"ILi(\d+)EE" + tail, report, re.S):
+        f = 128 * int(n1)
+        smem = (fft_plan.pilot_plan(ANTENNAS, f).smem_bytes if name == "pilot_ls"
+                else fft_plan.split_smem_bytes(teams))
+        yield (f"ptxas {name}_rows<F {f}> (row pass): {regs} registers, {spill} B spilled, "
+               f"{smem} B dynamic shared memory, {teams * 64} threads a block ({ANTENNAS} "
+               f"antennas)")
+    for n1, t, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm5split\d+column_pass_kernelILi(\d+)E(\w)EE"
+            + tail, report, re.S):
+        yield (f"ptxas column_pass<n1 {n1}, {'int16' if t == 's' else 'float'}>: {regs} "
+               f"registers, {spill} B spilled, {fft_plan.split_column_smem_bytes(int(n1))} B "
+               f"dynamic shared memory, {fft_plan.SPLIT_COLUMN_THREADS} threads a block")
+    for n1, pilot, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm5speed\d+speed_rows_kernelILi(\d+)ELb(\d)EE"
+            + tail, report, re.S):
+        f = 128 * int(n1)
+        yield (f"ptxas speed_rows<F {f}, {'pilot_ls_bf16' if pilot == '1' else 'fft_mrc_bf16'}>"
+               f": {regs} registers, {spill} B spilled, "
+               f"{fft_plan.speed_smem_bytes(f, pilot == '1')} B dynamic shared memory, "
+               f"{fft_plan.SPEED_ROWS_THREADS} threads a block")
+
+
+def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, io_floor,
+                    report) -> tuple:
+    """Phase 15 (see the module docstring); ``io_floor`` is phase 7's
+    measured floor in bytes/s, ``report`` phase 2's ptxas report.  Returns
+    the phase's records and the kernel records of the six kernels at each
+    F."""
+    import warnings
+
+    import torch
+
+    from ofdm_ls_mrc_tpu_torch import FrameConfig, parallel
+    from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
+    from ofdm_ls_mrc_tpu_torch.ops import fused_mrc
+    from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+    from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+    t_phase = time.perf_counter()
+    lines = list(large_ptxas_lines(report))
+    print("\n".join(lines))
+    require(len(lines) == 30, f"ptxas report: {len(lines)} phase-15 instantiations, want 30")
+    rec, records = {"ptxas": lines}, []
+    s = SYMBOLS - 1
+
+    def leg(label, f, fn, want, zero=()):
+        """One path at F: counts set to 0 just before it and read just after,
+        each kernel of ``want`` launched that many times, none of ``zero``,
+        and no fallback RuntimeWarning."""
+        torch.cuda.synchronize()
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"large F={f} {label}: launches {({k: v for k, v in got.items() if v})}")
+        for k, n in want.items():
+            require(got[k] == n, f"large F={f} {label}: {k} launched {got[k]} times, want {n}")
+        for k in zero:
+            require(got[k] == 0, f"large F={f} {label}: {k} launched {got[k]} times, want 0")
+        return out, {k: got[k] for k in want}
+
+    parallel.initialize(f"file://{os.path.join(workdir, 'large_store')}", 1, 0, "nccl")
+    try:
+        mesh = parallel.make_mesh(1, 1)
+        for f, frames in LARGE_FFT.items():
+            r, errs, launches = {}, {name: 0.0 for name in LARGE_KERNELS}, {}
+            cp = 72 * f // 1024
+
+            def exact_check(name, label, pairs):
+                rel = max(max_rel(k, p) for k, p in pairs)
+                errs[name] = max(errs[name], max(max_abs(k, p) for k, p in pairs))
+                print(f"check {name} F={f} {label}: max-rel {rel:.3e}")
+                require(rel < KERNEL_TOL, f"{name} F={f} {label}: max-rel {rel:.3e}")
+
+            def speed_check(name, label, kernel, plain, exact):
+                e_kp, e_pe, rel = evm_db(kernel, plain), evm_db(plain, exact), max_rel(kernel, plain)
+                errs[name] = max(errs[name], max_abs(kernel, plain))
+                print(f"check {name} F={f} {label}: EVM vs plain {e_kp:.2f} dB, plain vs exact "
+                      f"{e_pe:.2f} dB, max-rel vs plain {rel:.3e}")
+                require(e_kp <= e_pe - SPEED_GAP_DB and rel < SPEED_REL,
+                        f"{name} F={f} {label}: EVM {e_kp:.2f} dB (plain vs exact {e_pe:.2f}), "
+                        f"max-rel {rel:.3e}")
+
+            def hold(label, x, p_rows, d_rows, hc=None, hs=None):
+                """Each kernel against its plain version on these rows."""
+                h_k, inv_k = pipe.estimate_pilot_fused(p_rows, x)
+                _, sum_k = pipe.estimate_pilot_fused(p_rows, x, invert=False)
+                h_p, inv_p = pipe.estimate_pilot_plain(p_rows, x)
+                exact_check("pilot_ls", label, [(h_k.to_numpy(), h_p.to_numpy()),
+                                                (1 / inv_k.cpu().numpy(), 1 / inv_p.cpu().numpy())])
+                exact_check("pilot_ls_sum", label, [(sum_k.cpu().numpy(), 1 / inv_p.cpu().numpy())])
+                exact_check("fft_mrc", label, [(pipe.fused_pipeline(d_rows, h_p, inv_p).to_numpy(),
+                                                pipe.fused_pipeline_plain(d_rows, h_p, inv_p)
+                                                .to_numpy())])
+                if hc is not None:
+                    k = fused_mrc.fused_demod(d_rows, hc, hs).to_numpy()
+                    exact_check("mrc_demod", label, [(
+                        k[..., 1:], fused_mrc.fused_demod_plain(d_rows, hc, hs).to_numpy()[..., 1:])])
+                hb, ib = pipe.estimate_pilot_fused(p_rows, x, exact=False)
+                hbp, ibp = pipe.estimate_pilot_speed_plain(p_rows, x)
+                speed_check("pilot_ls_bf16", f"{label} h", hb.to_numpy(), hbp.to_numpy(),
+                            h_p.to_numpy())
+                speed_check("pilot_ls_bf16", f"{label} sum|h|^2", *(1 / v.cpu().numpy()
+                                                                    for v in (ib, ibp, inv_p)))
+                speed_check("fft_mrc_bf16", label, *(fn(d_rows, h_p, inv_p).to_numpy() for fn in (
+                    lambda *a: pipe.fused_pipeline(*a, exact=False),
+                    pipe.fused_pipeline_speed_plain, pipe.fused_pipeline_plain)))
+                return h_p, inv_p
+
+            # The frame: 16 x F x 101 f32, cp 72 F / 1024, 16-QAM through the
+            # 16-tap 25 dB channel.
+            t0 = time.perf_counter()
+            cfg = FrameConfig(num_antennas=ANTENNAS, fft_size=f, cyclic_prefix=cp,
+                              frame_len=SYMBOLS)
+            rng = np.random.default_rng(f)
+            data, _ = sim.random_symbols(rng, (s, f - 1), "16qam")
+            pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+            rx_frame = sim.ChannelModel(ANTENNAS, f, num_taps=16, snr_db=25.0, seed=9).apply(
+                sim.make_tx_frame(data, pilot, cp), cp)
+            gold = golden.demod_frame(rx_frame, pilot, cp)
+            frame = CArray.from_numpy(rx_frame, dev)
+            del rx_frame
+            print(f"large F={f}: {ANTENNAS}x{f}x{SYMBOLS} f32 frame, cp {cp}, made in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                rx = UplinkReceiver(cfg, pilot, device=dev)
+                rx_speed = UplinkReceiver(cfg, pilot, exact=False, device=dev)
+                cfg0 = FrameConfig(num_antennas=ANTENNAS, fft_size=f, cyclic_prefix=0,
+                                   frame_len=SYMBOLS)
+                rx0 = UplinkReceiver(cfg0, pilot, device=dev)          # demod_parts: CP-free rows
+                rx0_speed = UplinkReceiver(cfg0, pilot, exact=False, device=dev)
+            require(rx.pipeline == rx_speed.pipeline == "fused",
+                    f"large F={f}: the receivers run {rx.pipeline!r}/{rx_speed.pipeline!r}")
+            y = frame[..., cp:]
+            hc, hs = rx.estimate_channel(frame[0])
+            h_e, inv_e = hold(f"{ANTENNAS}x{f}x{SYMBOLS} f32 cp {cp}", rx.x_full, y[0], y[1:],
+                              hc, hs)
+            if f == 8192:  # the register FFT's element-by-element loads (an odd prefix)
+                small = CArray(*(torch.round(t[:6] * 32767).clamp(-32768, 32767)
+                                 .to(torch.int16)[..., 1:1 + f] for t in (frame.re, frame.im)))
+                hold("16x8192x6 int16 cp 1 (element loads)", rx.x_full, small[0], small[1:],
+                     hc, hs)
+
+            # The paths, each at full width.
+            out, launches["frame"] = leg("UplinkReceiver(fused).demod_frame", f,
+                                         lambda: rx.demod_frame(frame).to_numpy(),
+                                         {"pilot_ls": 1, "fft_mrc": 1},
+                                         ("pilot_ls_bf16", "fft_mrc_bf16"))
+            rel, e_sent = max_rel(out, gold), sim.evm_db(np.fft.fftshift(out, axes=-1), data)
+            print(f"large F={f} main path: shape {out.shape}, EVM vs sent {e_sent:.2f} dB, "
+                  f"max-rel vs golden {rel:.3e}  [{card}]")
+            require(out.shape == (s, f - 1) and np.all(np.isfinite(out)) and rel < GOLDEN_TOL
+                    and e_sent < EVM_MAX_DB, f"large F={f} main path: rel {rel:.3e}, EVM {e_sent}")
+            r["main path"] = {"evm_sent_db": e_sent, "max_rel_golden": rel}
+            parts, launches["parts"] = leg("demod_parts", f, lambda: rx0.demod_parts(
+                y[0], y[1:]).to_numpy(), {"pilot_ls": 1, "fft_mrc": 1})
+            require(max_rel(parts, out) < 1e-6, f"large F={f}: demod_parts vs demod_frame")
+            split, launches["split"] = leg("split phase (estimate_channel + demod_data)", f,
+                                           lambda: rx.demod_data(frame[1:], *rx.estimate_channel(
+                                               frame[0])).to_numpy(), {"mrc_demod": 1})
+            rel_split = max_rel(split, gold)
+            require(rel_split < GOLDEN_TOL, f"large F={f} split phase: max-rel {rel_split:.3e}")
+            out_b, launches["speed"] = leg("UplinkReceiver(exact=False).demod_frame", f,
+                                           lambda: rx_speed.demod_frame(frame).to_numpy(),
+                                           {"pilot_ls_bf16": 1, "fft_mrc_bf16": 1},
+                                           ("pilot_ls", "fft_mrc"))
+            e_gold_b = evm_db(out_b, gold)
+            e_sent_b = sim.evm_db(np.fft.fftshift(out_b, axes=-1), data)
+            print(f"large F={f} speed path: EVM vs golden {e_gold_b:.2f} dB, vs sent "
+                  f"{e_sent_b:.2f} dB; split phase max-rel vs golden {rel_split:.3e}  [{card}]")
+            require(e_gold_b <= SPEED_GOLDEN_EVM_DB and e_sent_b < EVM_MAX_DB,
+                    f"large F={f} speed path: EVM {e_gold_b:.2f} / {e_sent_b:.2f} dB")
+            parts_b, _ = leg("demod_parts(exact=False)", f, lambda: rx0_speed.demod_parts(
+                y[0], y[1:]).to_numpy(), {"pilot_ls_bf16": 1, "fft_mrc_bf16": 1})
+            require(max_rel(parts_b, out_b) < 1e-6, f"large F={f}: speed demod_parts vs frame")
+            r["speed path"] = {"evm_golden_db": e_gold_b, "evm_sent_db": e_sent_b}
+            r["split phase"] = {"max_rel_golden": rel_split}
+            sd = StreamingDemodulator(cfg, pilot, pipeline="fused", device=dev)
+
+            def stream(sd=sd):
+                sd.push_pilot(frame[0])
+                return np.stack([sd.push_symbol(frame[i]).to_numpy() for i in range(1, SYMBOLS)])
+
+            rows, launches["streaming"] = leg("StreamingDemodulator(fused)", f, stream,
+                                              {"pilot_ls": 1, "fft_mrc": s})
+            rel_stream = max_rel(rows, out)
+            require(rel_stream < KERNEL_TOL, f"large F={f} streaming vs frame: {rel_stream:.3e}")
+            srx = parallel.ShardedUplinkReceiver(cfg, pilot, mesh, device=dev)
+            srx_b = parallel.ShardedUplinkReceiver(cfg, pilot, mesh, exact=False, device=dev)
+            srx.warmup()
+            srx_b.warmup()
+            out_s, launches["sharded"] = leg("ShardedUplinkReceiver (world 1, nccl)", f,
+                                             lambda: srx.demod_frame(frame).to_numpy(),
+                                             {"pilot_ls_sum": 1, "fft_mrc": 1}, ("pilot_ls",))
+            out_sb, launches["sharded speed"] = leg(
+                "ShardedUplinkReceiver(exact=False)", f, lambda: srx_b.demod_frame(
+                    frame).to_numpy(), {"pilot_ls_sum": 1, "fft_mrc_bf16": 1}, ("pilot_ls",))
+            ssd = parallel.ShardedStreamingDemodulator(cfg, pilot, mesh, device=dev)
+
+            def sstream(ssd=ssd):
+                ssd.push_pilot(frame[0])
+                return np.stack([ssd.push_symbol(frame[i]).to_numpy() for i in range(1, SYMBOLS)])
+
+            rows_s, launches["sharded streaming"] = leg("ShardedStreamingDemodulator", f, sstream,
+                                                        {"pilot_ls_sum": 1, "fft_mrc": s})
+            rels = (max_rel(out_s, out), max_rel(rows_s, out_s), evm_db(out_sb, gold))
+            print(f"large F={f} sharded: frame vs unsharded {rels[0]:.3e}, streaming vs frame "
+                  f"{rels[1]:.3e}, speed EVM vs golden {rels[2]:.2f} dB; streaming vs frame "
+                  f"{rel_stream:.3e}")
+            require(rels[0] < KERNEL_TOL and rels[1] < KERNEL_TOL
+                    and rels[2] <= SPEED_GOLDEN_EVM_DB, f"large F={f} sharded: {rels}")
+            r["streaming"] = {"max_rel_frame": rel_stream}
+            r["sharded"] = {"max_rel_unsharded": rels[0], "streaming_max_rel": rels[1],
+                            "speed_evm_golden_db": rels[2]}
+            del sd, srx, srx_b, ssd, rows, rows_s
+
+            # The capture: sc16 frames, cp stripped on the host, made on the card.
+            g = torch.Generator(device=dev).manual_seed(f)
+            shape = (frames, SYMBOLS, ANTENNAS, f)
+            cap = CArray(*(torch.round(0.1 * torch.randn(shape, generator=g, device=dev) * 32767)
+                           .clamp(-32768, 32767).to(torch.int16) for _ in range(2)))
+            cap_pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+            rx_cap = UplinkReceiver(cfg0, cap_pilot, device=dev)
+            rx_cap_b = UplinkReceiver(cfg0, cap_pilot, exact=False, device=dev)
+            hold(f"{frames} sc16 frames (the capture)", rx_cap.x_full, cap[:, 0], cap[:, 1:])
+            cap_out, launches["capture"] = leg(f"demod_capture ({frames} sc16 frames)", f,
+                                               lambda: rx_cap.demod_capture(cap).to_numpy(),
+                                               {"pilot_ls": 1, "fft_mrc": 1})
+            cap_b, launches["capture speed"] = leg(
+                f"demod_capture(exact=False) ({frames} frames)", f,
+                lambda: rx_cap_b.demod_capture(cap).to_numpy(),
+                {"pilot_ls_bf16": 1, "fft_mrc_bf16": 1})
+            require(max_rel(cap_out[-1], rx_cap.demod_frame(cap[-1]).to_numpy()) < 1e-6
+                    and max_rel(cap_b[-1], rx_cap_b.demod_frame(cap[-1]).to_numpy()) < 1e-6,
+                    f"large F={f}: a capture frame differs from demod_frame")
+            del cap_out, cap_b
+
+            # Times: each kernel beside its plain version and torch.fft.fft
+            # of its rows (one frame, f32, cp), the capture per frame.
+            x = rx.x_full
+            pilot_c = torch.complex(y[0].re.contiguous(), y[0].im.contiguous())
+            data_c = torch.complex(y[1:].re.contiguous(), y[1:].im.contiguous())
+            sides = {
+                "pilot_ls": (lambda: pipe.estimate_pilot_fused(y[0], x),
+                             lambda: pipe.estimate_pilot_plain(y[0], x), pilot_c),
+                "pilot_ls_sum": (lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
+                                 lambda: pipe.estimate_pilot_plain(y[0], x, invert=False),
+                                 pilot_c),
+                "fft_mrc": (lambda: pipe.fused_pipeline(y[1:], h_e, inv_e),
+                            lambda: pipe.fused_pipeline_plain(y[1:], h_e, inv_e), data_c),
+                "mrc_demod": (lambda: fused_mrc.fused_demod(y[1:], hc, hs),
+                              lambda: fused_mrc.fused_demod_plain(y[1:], hc, hs), data_c),
+                "pilot_ls_bf16": (lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
+                                  lambda: pipe.estimate_pilot_speed_plain(y[0], x), pilot_c),
+                "fft_mrc_bf16": (lambda: pipe.fused_pipeline(y[1:], h_e, inv_e, exact=False),
+                                 lambda: pipe.fused_pipeline_speed_plain(y[1:], h_e, inv_e),
+                                 data_c),
+            }
+            main_leg = {"pilot_ls": "frame", "fft_mrc": "frame", "mrc_demod": "split",
+                        "pilot_ls_sum": "sharded", "pilot_ls_bf16": "speed",
+                        "fft_mrc_bf16": "speed"}
+            for name, (kernel_fn, plain_fn, rows_c) in sides.items():
+                t = measure(kernel_fn, plain_fn, LARGE_REPS,
+                            lambda rows_c=rows_c: torch.fft.fft(rows_c, dim=-1))
+                if name.endswith("_bf16"):
+                    nbytes, flops, tflops = speed_work(name, ANTENNAS, f, s)
+                    b_ms, b_by, _ = speed_bound_ms(nbytes, flops, tflops)
+                else:
+                    nbytes, flops = one_frame_work(name.replace("_sum", ""), ANTENNAS, f, s)
+                    b_ms, b_by = bound_ms(nbytes, flops)
+                k_ms, k_src = timed(t)
+                split = ", ".join(f"{k[:48]} {v * 1e3:.2f} us" for k, v in sorted(
+                    t["kernel_split"].items(), key=lambda kv: -kv[1]))
+                print(f"time {name} F={f} (one {'pilot' if 'pilot' in name else 'frame'}, f32, "
+                      f"cp {cp}): device {us(k_ms)} ({k_src}: {split}); plain "
+                      f"{us(timed(t, 'plain')[0])}; torch.fft.fft of its rows "
+                      f"{us(timed(t, 'library')[0])}; bound {b_ms * 1e3:.2f} us ({b_by}) at the "
+                      f"published peaks, {nbytes / io_floor * 1e6:.2f} us at the measured io "
+                      f"floor ({nbytes / 1e6:.3f} MB)  [{card}]")
+                src, replaces = LARGE_KERNELS[name]
+                records.append({
+                    "name": f"{name} F={f}", "route": "cuda",
+                    "source": f"ofdm_ls_mrc_tpu_torch/csrc/{src}", "replaces": replaces,
+                    "launches": launches[main_leg[name]][name],
+                    "launches_legs": {k: v[name] for k, v in launches.items() if name in v},
+                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": timed(t, "plain")[0],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed(t, "library")[0],
+                    "floor_ms": nbytes / io_floor * 1e3, "kernel_split_ms": t["kernel_split"],
+                    "time_source": {"ms": k_src, "plain_ms": timed(t, "plain")[1],
+                                    "library_ms": timed(t, "library")[1]},
+                    "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {cp}, one frame",
+                    **({"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}
+                       if f in pipe.SPLIT_FFT_SIZES or name.endswith("_bf16") else {})})
+            del pilot_c, data_c
+            cap_bytes = (one_frame_work("fft_mrc", ANTENNAS, f, s)[0] - s * ANTENNAS * f * 4
+                         + ANTENNAS * f * 4 + f * 12)   # sc16 rows in, the pilot's estimate
+            for label, rxc in (("exact", rx_cap), ("bf16", rx_cap_b)):
+                d = device_ms(lambda rxc=rxc: rxc.demod_capture(cap), 3)
+                per = None if d["ms"] is None else d["ms"] / frames
+                print(f"time demod_capture {label} F={f} ({frames} sc16 frames, cp stripped on "
+                      f"the host{'; fewer frames than 20 at this F: the same 1.06 GB' if frames < 20 else ''}): "
+                      f"device {us(per, d['partial'])}/frame; bound {cap_bytes / 1e6:.3f} MB a "
+                      f"frame -> {cap_bytes / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s, "
+                      f"{cap_bytes / io_floor * 1e6:.2f} us at the measured io floor  [{card}]")
+                r[f"capture {label} ms per frame"] = per
+            for rc in records:
+                if rc["name"] in (f"pilot_ls F={f}", f"fft_mrc F={f}"):
+                    rc["capture_ms_per_frame"] = r["capture exact ms per frame"]
+                if rc["name"] in (f"pilot_ls_bf16 F={f}", f"fft_mrc_bf16 F={f}"):
+                    rc["capture_ms_per_frame"] = r["capture bf16 ms per frame"]
+            r["capture frames"] = frames
+            r["launches"] = launches
+            rec[f"F={f}"] = r
+            del frame, y, cap, rx, rx_speed, rx0, rx0_speed, rx_cap, rx_cap_b, hc, hs, h_e, inv_e
+            torch.cuda.empty_cache()
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+    # demod_app at F = 8192 on a ring of a few sc16 frames: exact and bf16,
+    # whole frame, --sc16-native.
+    f, cp = LARGE_APP_FFT, 72 * LARGE_APP_FFT // 1024
+    pilot_path = os.path.join(workdir, "Pilots_large.dat")
+    golden.write_pilot(pilot_path, np.exp(2j * np.pi * np.random.default_rng(15).random(
+        f - 1)).astype(np.complex64))
+    wire, sent, lgold = live_frames(golden, sim, golden.load_pilot(pilot_path, f - 1),
+                                    LARGE_APP_FRAMES, seed=16, f=f, cp=cp)
+    n = LARGE_APP_FRAMES
+    for label, flags, kernels, evm_max in (
+            ("F=8192 sc16-native", ("--sc16-native",), ("pilot_ls", "fft_mrc"), None),
+            ("F=8192 sc16-native bf16", ("--sc16-native", "--kernel-precision", "bf16"),
+             SPEED_KERNELS, SPEED_GOLDEN_EVM_DB)):
+        out_path = os.path.join(workdir, f"Output_{label.replace(' ', '_')}.dat")
+        rec[f"app {label}"] = check_live(
+            label, run_live_app(flags, wire, pilot_path, out_path, f=f, cp=cp), out_path, sent,
+            lgold, (n, n), card, golden, sim, kernels=tuple(kernels), gold_evm_max=evm_max, f=f)
+    del wire, sent, lgold
+    print(f"phase 15 (large F): {time.perf_counter() - t_phase:.1f} s")
+    return rec, records
+
+
 def call_ms(fn, n: int) -> float:
     """Per call, CUDA events around n back-to-back calls: the host's
     launch work is inside when it is slower than the device."""
@@ -2331,6 +2723,11 @@ def main() -> int:
         speed, speed_records = speed_phase(workdir, dev, card, golden, sim, reset_counts,
                                            counts, measure, device_ms, live["gate"])
 
+    # -- 15. the large-F geometry: F = 8192, 16384 and 32768 -------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        large, large_records = large_fft_phase(workdir, dev, card, golden, sim, reset_counts,
+                                               counts, measure, io_floor, ptxas.getvalue())
+
     # Work of each kernel at the timed shapes (f32 in, one frame; the probes
     # one frame of 101 symbols): each input read once, each output written once.
     a, f, s = ANTENNAS, FFT, SYMBOLS - 1
@@ -2398,12 +2795,13 @@ def main() -> int:
                     "replaces": KERNELS["pilot_ls"][1], **variant,
                     "launches_streaming": sharded["streaming"]["launches"]["pilot_ls_sum"]})
     records.extend(speed_records)
+    records.extend(large_records)
 
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "ofdm_ls_mrc_tpu" or m.startswith("ofdm_ls_mrc_tpu.")
                     for m in sys.modules), "the JAX package was imported")
     print(json.dumps({"live": live, "baseline": baseline, "downlink": downlink,
-                      "sharded": sharded, "speed": speed, "card": card}))
+                      "sharded": sharded, "speed": speed, "large_fft": large, "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

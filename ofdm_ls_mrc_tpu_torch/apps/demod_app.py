@@ -19,7 +19,7 @@ mesh needs one process a rank: ``--distributed HOST:PORT --num-processes N
 --process-id i`` (each rank reads its own ring of its antennas, rank 0
 writes the output).  ``--kernel-precision bf16`` runs the fused whole-frame
 modes (whole frame, ``--batch-frames``, ``--mesh``, ``--distributed``) in
-the bf16 speed mode (``csrc/fft_mrc_bf16.cu``; F = 256 to 4096, exact
+the bf16 speed mode (``csrc/fft_mrc_bf16.cu``; F = 256 to 32768, exact
 below, as the JAX app); ``--per-symbol`` keeps the exact kernels, as the
 JAX loop does, and says so on stderr.  ``--pipeline fast`` and ``--fft-impl
 {xla,matmul,four_step}`` select the receivers' pipelines as in the JAX app
@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fused-kernel numerics of the whole-frame modes: exact = "
                          "fp32-grade; bf16 = the bf16 speed mode (stage 2 of the "
                          "FFT on the tensor cores in bf16, ~1e-2 relative error; "
-                         "F = 256 to 4096); --per-symbol stays exact")
+                         "F = 256 to 32768); --per-symbol stays exact")
     ap.add_argument("--batch-frames", type=int, default=1,
                     help="demodulate N whole frames per launch of each kernel "
                          "(UplinkReceiver.demod_capture); a short trailing "

@@ -41,24 +41,24 @@
 //     per team in sequence, also at S = 1 (the streaming shape).
 // ptxas (sm_90a): 223-226 registers at F = 1024 (254 for f32 rows on the
 // element path), no spills; 75,776 B of dynamic shared memory a block, so 2 blocks (8 warps)
-// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.
+// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.  F = 8192: one
+// team of 256 threads a symbol (radices 32, 16, 16), 225-226 registers, no
+// spills, 204,800 B, one block an SM: one 16 x 8192 x 100 f32 frame takes
+// ~82 us on an H100 against 33.6 us of bytes at 3.35 TB/s.
 //
-// Small F (64 and 128, the 64-subcarrier configurations).  A team is 8
-// lanes, four teams share a warp and sync only their own lanes, and a block
-// of 128 threads holds G = 4 symbols: a 9-symbol frame (8 data symbols) is 2
-// blocks, and each h row a team reads serves its 4 symbols from L1.  At A = 1
-// three of a symbol's four teams have no row: team_rows still writes their
-// (zero) partials, so partial_sum never reads a buffer left by another
-// block.  19,456 B of shared memory a block at F = 64, 36,352 B at 128.
-// ptxas (sm_90a) under __launch_bounds__(128, 4), whose cap is 128
-// registers: 80-86 at F = 64, 122-128 at F = 128, no spills.
-// One 4 x 64 x 9 frame reads 16 KB: its time is launch latency, not bytes;
-// the shape that fills the card is demod_capture over many frames (4,096
-// such frames are 8,192 blocks, 85 MB of f32 rows with the prefix).
+// F = 16384 and 32768: the split form (fft_split.cuh).  The column pass
+// (fft_split.cu) writes each row's four-step columns to a scratch, then
+// fft_mrc_rows_kernel (below) runs the 128-point FFT of each scratch row,
+// a block taking kK1 = 8 bins k1 of one symbol over every antenna (4
+// antenna teams at 16 antennas, 256 threads), folds Y conj(h) and stores
+// as above: eq = num * inv * scale in reference order.  ptxas: 128
+// registers, no spills, 70,656 B, two blocks an SM.  A 16 x 32768 x 100 f32
+// frame takes ~880 us on an H100 against 134 us of bytes: the scratch's
+// write and read, the estimate's 16-byte pieces (PERF.md).
 
 #include <cstdint>
 
-#include "fft_warp.cuh"
+#include "fft_split.cuh"
 
 namespace ofdm {
 
@@ -138,10 +138,77 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
     OFDM_FFT_MRC_CASE(1024)
     OFDM_FFT_MRC_CASE(2048)
     OFDM_FFT_MRC_CASE(4096)
+    OFDM_FFT_MRC_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_FFT_MRC_CASE
+}
+
+// F = 16384 and 32768 (fft_split.cuh): the row pass of items [item0,
+// item0 + gridDim.y) of the scratch b [n, A, n1, 128], kK1 bins k1 a block,
+// each folded as Y conj(h) over every antenna of its block; the epilogue
+// is the one above: eq = num * inv * scale in reference order.
+template <int N1>
+__global__ void __launch_bounds__(split::kRowThreads)
+fft_mrc_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
+                    long long item0, int S, int A, float scale,
+                    const float* __restrict__ h_re, const float* __restrict__ h_im,
+                    const float* __restrict__ inv, const float2* __restrict__ tw,
+                    float* __restrict__ out_re, float* __restrict__ out_im) {
+  constexpr int F = N1 * split::kN2;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const long long il = blockIdx.y;
+  const long long item = item0 + il;
+  const int k = static_cast<int>(item / S);
+  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
+  const int k1_0 = blockIdx.x * split::kK1;
+  const float* const hk_re = h_re + static_cast<long long>(k) * A * F;
+  const float* const hk_im = h_im + static_cast<long long>(k) * A * F;
+  auto fold = [&](int a, int k1, int k2, float2 y, float& acc_re, float& acc_im) {
+    const long long at = static_cast<long long>(a) * F + k1 + N1 * k2;
+    const float cr = __ldg(hk_re + at), ci = __ldg(hk_im + at);
+    acc_re += y.x * cr + y.y * ci;  // Y * conj(h)
+    acc_im += y.y * cr - y.x * ci;
+  };
+  const long long rows = il * A * F;
+  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
+  __syncthreads();
+  const float* inv_k = inv + static_cast<long long>(k) * F;
+  const long long orow = item * (F - 1);
+  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
+    const int g = i % split::kK1, k2 = i / split::kK1;
+    const int bin = k1_0 + g + N1 * k2;
+    if (bin == 0) continue;  // DC bin
+    int j = bin - F / 2;
+    if (j < 0) j += F - 1;
+    const float2 num = split::row_sum(smem, P, g, k2);
+    const float gain = inv_k[bin] * scale;
+    out_re[orow + j] = num.x * gain;
+    out_im[orow + j] = num.y * gain;
+  }
+}
+
+template <int N1>
+cudaError_t split_fft_mrc(bool int16, const void* y_re, const void* y_im, long long stride_k,
+                          long long stride_s, long long stride_a, float scale, int K, int S,
+                          int A, const float* h_re, const float* h_im, const float* inv,
+                          const float* tw, float* out_re, float* out_im, float* scratch,
+                          int chunk, cudaStream_t stream) {
+  const int P = split::data_teams(A);
+  const size_t smem = split::row_smem_bytes(P);
+  auto kernel = fft_mrc_rows_kernel<N1>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
+  return split::run_split<N1>(
+      int16, y_re, y_im, stride_k, stride_s, stride_a, S, A, static_cast<long long>(K) * S, tw,
+      scratch, chunk, stream, [&](const float* b_re, const float* b_im, long long i0, int n) {
+        kernel<<<dim3(N1 / split::kK1, n), P * split::kK1 * split::kRowLanes, smem, stream>>>(
+            b_re, b_im, i0, S, A, scale, h_re, h_im, inv, row_tw, out_re, out_im);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace ofdm
@@ -152,15 +219,27 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
 // aligned: every row starts 16-byte aligned (the bases and the three strides
 // in bytes are multiples of 16), which selects the cp.async load path.
 // h_re/h_im: [K, A, F] unconjugated estimate, inv: [K, F], natural order.
-// tw: the pass twiddles of ops/fft_plan.py.  Outputs out_re/out_im:
-// [K, S, F-1] in reference order.  Returns the cudaError_t of the launch.
+// tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and 32768 its
+// split table.  Outputs out_re/out_im: [K, S, F-1] in reference order.
+// scratch, chunk: at F = 16384 and 32768 the split form's scratch
+// [2, chunk, A, F] float32 and the symbols of one chunk (ops/fft_plan.py
+// split_chunk); unused below.  Returns the cudaError_t of the launches.
 extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
                             int aligned, long long stride_k, long long stride_s,
                             long long stride_a, float scale, int K, int S, int A,
                             int F, const float* h_re, const float* h_im,
                             const float* inv, const float* tw, float* out_re,
-                            float* out_im, void* stream) {
+                            float* out_im, float* scratch, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 16384 || F == 32768) {
+    auto run_split = [&](auto fn) {
+      return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_k, stride_s, stride_a,
+                                 scale, K, S, A, h_re, h_im, inv, tw, out_re, out_im,
+                                 scratch, chunk, st));
+    };
+    return F == 16384 ? run_split(ofdm::split_fft_mrc<128>)
+                      : run_split(ofdm::split_fft_mrc<256>);
+  }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_k, stride_s, stride_a, scale, K, S, A, h_re,
                     h_im, inv, tw, out_re, out_im, st);

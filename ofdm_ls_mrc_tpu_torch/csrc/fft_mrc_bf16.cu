@@ -83,6 +83,11 @@
 // tiles, two row stages, two h stages, barriers); pilot 145,488 B at F =
 // 1024, 182,352 B at 4096 (W, two tiles, h staging, X and 1/|X|^2).
 //
+// F = 8192 to 32768 (n1 = 64 to 256): the split form's column pass
+// (fft_split.cu) for stage 1 and speed_rows_kernel (near the end of this
+// file) for stage 2, one warpgroup a block, 82,944 B (W and one tile); ptxas
+// 255 registers, the data kernel without spills, the pilot 352 B spilled.
+//
 // What it leaves for later: W is copied by every block, not multicast to
 // the cluster by TMA; rows by cp.async, not TMA tensor copies; warpgroup 0
 // alone folds every chunk, and with two stage-1 warpgroups it is the
@@ -95,7 +100,7 @@
 #include <cstdint>
 
 #include "dft_mma.cuh"
-#include "fft_warp.cuh"
+#include "fft_split.cuh"
 #include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
@@ -817,6 +822,187 @@ __global__ void __launch_bounds__(kThreads<true>, 1) pilot_ls_bf16_kernel(const 
   speed_body<N1, T, true>(p);
 }
 
+// -- F = 8192 to 32768: n1 = 64 to 256 ------------------------------------------
+//
+// A thread's column of n1 values no longer fits stage 1's registers (the
+// chunk layout above gives each thread v[32 / n1][n1]: no antenna at all past
+// n1 = 32).  Stage 1 is the split form's column pass (fft_split.cu: the
+// n1-point DFT in float32 and the twiddle, the sc16 scale folded into it, into
+// a scratch B[a][k1][i2]), and this kernel is the row pass: a block of one
+// warpgroup takes 32 bins k1 of one symbol (the pilot: frame), k1 = 32 g + q,
+// and for each antenna in turn reads B's 32 rows (a chunk of 32 complex rows,
+// r = a n1 + k1, as above), rounds them to bf16 into the tile and runs stage 2
+// as the same four wgmma quarters against W, the next antenna's rows loading
+// meanwhile.  Its sums over the antennas stay in the registers of the fold
+// (data: sum C conj(h), h read through L1 a quarter ahead; pilot: h =
+// C conj(X) / |X|^2 stored at once, sum |h|^2), so no cluster and no second
+// reduction.  What it leaves: one warpgroup does the loads, the bf16 pack,
+// the product and the fold in turn (two blocks an SM); the scratch costs a
+// write and a read of every sample (PERF.md).
+struct RowsParams {
+  const float* b_re;       // the column pass's scratch [n, A, n1, 128]
+  const float* b_im;
+  long long item0;         // the chunk's first symbol (the pilot: frame)
+  int S, A;                // the pilot: S = 1
+  const float* h_re;       // data: estimate [K, A, F]
+  const float* h_im;
+  const float* inv;        // data: [K, F]
+  const float* x_re;       // pilot: [F] padded pilot, natural order
+  const float* x_im;
+  const uint4* w;          // [128, 256] bf16 [Wr | Wi]
+  float* out_re;           // data: [K, S, F-1]; pilot: h [K, A, F]
+  float* out_im;
+  float* inv_out;          // pilot: [K, F]
+};
+
+constexpr int kRowsK1 = kChunkRows;  // bins k1 of a block
+constexpr int kRowsBytes = kWBytes + kTileBytes + kAlign;
+
+template <int N1, bool kPilot>
+__global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
+  constexpr int F = N1 * kN2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
+  unsigned char* const tile = smem + kWBytes;
+  const unsigned w_s = smem_u32(smem), tile_s = smem_u32(tile);
+  const int t = threadIdx.x;
+  load_w(smem, p.w, t);
+  wfft::cp_async_commit();
+  const long long il = blockIdx.y;
+  const long long item = p.item0 + il;
+  const int k = static_cast<int>(kPilot ? item : item / p.S);
+  const int q = 8 * (t >> 5) + ((t & 31) >> 2);  // the thread's complex row of a chunk
+  const int t4 = t & 3;
+  const int k1 = kRowsK1 * blockIdx.x + q;
+  const float* const b_re = p.b_re + (il * p.A * N1 + kRowsK1 * blockIdx.x) * kN2;
+  const float* const b_im = p.b_im + (il * p.A * N1 + kRowsK1 * blockIdx.x) * kN2;
+  float sums[32][2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sums[i][0] = sums[i][1] = 0.0f;
+  float da[32], db[32];
+  wfft::cp_async_wait<0>();
+  fence_proxy_async();  // W, for the tensor cores (published by the first barrier below)
+  // Stage 1's output for rows k1 = 32 g .. 32 g + 31 of antenna a, column
+  // t: antenna a + 1's loads are in flight during antenna a's product and
+  // fold.
+  float br[kChunkRows], bi[kChunkRows];
+  auto load_rows = [&](int a) {
+    const long long rows = static_cast<long long>(a) * F;
+#pragma unroll
+    for (int r = 0; r < kChunkRows; ++r) {
+      br[r] = b_re[rows + r * kN2 + t];
+      bi[r] = b_im[rows + r * kN2 + t];
+    }
+  };
+  load_rows(0);
+  for (int a = 0; a < p.A; ++a) {
+    __syncthreads();  // every thread's products of the last antenna are done
+#pragma unroll
+    for (int r = 0; r < kChunkRows; ++r) {
+      const int m = tile_row(r);
+      *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m, t)) =
+          __float2bfloat16_rn(br[r]);
+      *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m + 8, t)) =
+          __float2bfloat16_rn(bi[r]);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the tile is written
+    issue_quarter(da, tile_s, w_s, 0);
+    issue_quarter(db, tile_s, w_s, 1);
+    if (a + 1 < p.A) load_rows(a + 1);
+    const long long hrow = (static_cast<long long>(k) * p.A + a) * F;
+#pragma unroll
+    for (int Q = 0; Q < kQuarters; ++Q) {
+      // The quarter's 8 bins of the thread: h (data) or X (pilot), loaded
+      // before the product is waited for.
+      float pre[8][2];
+#pragma unroll
+      for (int jc = 0; jc < 8; ++jc) {
+        const int bin = N1 * (32 * Q + 8 * (jc >> 1) + 2 * t4 + (jc & 1)) + k1;
+        if constexpr (kPilot) {
+          pre[jc][0] = __ldg(p.x_re + bin);
+          pre[jc][1] = __ldg(p.x_im + bin);
+        } else {
+          pre[jc][0] = __ldg(p.h_re + hrow + bin);
+          pre[jc][1] = __ldg(p.h_im + hrow + bin);
+        }
+      }
+      if (Q < kQuarters - 1) {
+        wg::wait<1>();
+      } else {
+        wg::wait<0>();
+      }
+      float(&d)[32] = (Q & 1) ? db : da;
+      wg::fence_operands(d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float cre = d[4 * j + cc] - d[4 * (j + 4) + 2 + cc];  // Br Wr - Bi Wi
+          const float cim = d[4 * (j + 4) + cc] + d[4 * j + 2 + cc];  // Br Wi + Bi Wr
+          const int jc = 2 * j + cc;
+          const int ix = 8 * Q + jc;
+          if constexpr (kPilot) {
+            const float xr = pre[jc][0], xi = pre[jc][1];
+            const float den = 1.0f / (xr * xr + xi * xi);
+            const float hr = (cre * xr + cim * xi) * den;
+            const float hi = (cim * xr - cre * xi) * den;
+            const int bin = N1 * (32 * Q + 8 * j + 2 * t4 + cc) + k1;
+            p.out_re[hrow + bin] = hr;
+            p.out_im[hrow + bin] = hi;
+            sums[ix][0] += hr * hr + hi * hi;
+          } else {
+            const float hr = pre[jc][0], hi = pre[jc][1];
+            sums[ix][0] += cre * hr + cim * hi;
+            sums[ix][1] += cim * hr - cre * hi;
+          }
+        }
+      }
+      if (Q + 2 < kQuarters) issue_quarter(d, tile_s, w_s, Q + 2);
+    }
+  }
+  // The block's bins: data eq = num * inv in reference order (the DC bin
+  // dropped), pilot inv = 1 / sum |h|^2.
+#pragma unroll
+  for (int ix = 0; ix < 32; ++ix) {
+    const int bin = N1 * (32 * (ix >> 3) + 8 * ((ix >> 1) & 3) + 2 * t4 + (ix & 1)) + k1;
+    if constexpr (kPilot) {
+      p.inv_out[static_cast<long long>(k) * F + bin] = 1.0f / sums[ix][0];
+    } else if (bin != 0) {
+      int jo = bin - F / 2;
+      if (jo < 0) jo += F - 1;
+      const float gain = __ldg(p.inv + static_cast<long long>(k) * F + bin);
+      const long long orow = item * (F - 1);
+      p.out_re[orow + jo] = sums[ix][0] * gain;
+      p.out_im[orow + jo] = sums[ix][1] * gain;
+    }
+  }
+}
+
+// The column pass and this kernel over chunks of `chunk` symbols (the
+// pilot: frames), the scratch [2, chunk, A, F]; `tw` the split table
+// (ops/fft_plan.py split_tables, the sc16 scale in its four-step part).
+template <int N1, bool kPilot>
+cudaError_t launch_rows(bool int16, const Params& p, const float* tw, float* scratch,
+                        int chunk, cudaStream_t stream) {
+  auto kernel = speed_rows_kernel<N1, kPilot>;
+  cudaError_t err = allow_smem(kernel, kRowsBytes);
+  if (err != cudaSuccess) return err;
+  RowsParams r = {nullptr, nullptr, 0, p.S, p.A, p.h_re, p.h_im, p.inv, p.x_re,
+                  p.x_im, p.w, p.out_re, p.out_im, p.inv_out};
+  return split::run_split<N1>(
+      int16, p.y_re, p.y_im, p.stride_k, p.stride_s, p.stride_a, p.S, p.A,
+      static_cast<long long>(p.K) * p.S, tw, scratch, chunk, stream,
+      [&](const float* b_re, const float* b_im, long long i0, int n) {
+        r.b_re = b_re;
+        r.b_im = b_im;
+        r.item0 = i0;
+        kernel<<<dim3(N1 / kRowsK1, n), 128, kRowsBytes, stream>>>(r);
+        return cudaGetLastError();
+      });
+}
+
 // One launch: clusters of min(chunks of a symbol, max_cluster) blocks, at
 // most one block an SM, walking `items` symbols (the pilot: frames).
 template <int N1, bool kPilot, typename Kernel>
@@ -869,8 +1055,23 @@ inline int n1_of(int F) {
 }
 
 template <typename T>
-cudaError_t dispatch(int F, bool pilot, const Params& p, cudaStream_t st) {
+cudaError_t dispatch(int F, bool pilot, const Params& p, const float* split_tw, float* scratch,
+                     int chunk, cudaStream_t st) {
   const long long items = static_cast<long long>(p.K) * p.S;
+  constexpr bool int16 = sizeof(T) == 2;
+  switch (F) {
+    case 8192:
+      return pilot ? launch_rows<64, true>(int16, p, split_tw, scratch, chunk, st)
+                   : launch_rows<64, false>(int16, p, split_tw, scratch, chunk, st);
+    case 16384:
+      return pilot ? launch_rows<128, true>(int16, p, split_tw, scratch, chunk, st)
+                   : launch_rows<128, false>(int16, p, split_tw, scratch, chunk, st);
+    case 32768:
+      return pilot ? launch_rows<256, true>(int16, p, split_tw, scratch, chunk, st)
+                   : launch_rows<256, false>(int16, p, split_tw, scratch, chunk, st);
+    default:
+      break;
+  }
 #define OFDM_CALL(N1)                                                                  \
   return pilot ? launch<N1, true>(pilot_ls_bf16_kernel<N1, T>, p, items, kPilotCluster, st) \
                : launch<N1, false>(fft_mrc_bf16_kernel<N1, T>, p, items, kDataCluster, st)
@@ -894,14 +1095,18 @@ cudaError_t dispatch(int F, bool pilot, const Params& p, cudaStream_t st) {
 // element by element).  h_re/h_im [K, A, F] unconjugated estimate (16-byte
 // aligned: the kernel copies a chunk's rows in bulk) and inv [K, F],
 // natural order.  tw: [F/128, 128] (re, im) float32 stage-1 twiddles, the
-// sc16 scale folded in for int16 rows; w: [128, 256] bf16 [Wr | Wi],
-// 16-byte aligned (ops/fft_plan.py).  Outputs out_re/out_im [K, S, F-1] in
-// reference order.  Returns the cudaError_t of the launch.
+// sc16 scale folded in for int16 rows; from F = 8192 the split table of
+// ops/fft_plan.py (split_tables) with the same fold.  w: [128, 256] bf16
+// [Wr | Wi], 16-byte aligned (ops/fft_plan.py).  Outputs out_re/out_im
+// [K, S, F-1] in reference order.  scratch, chunk: from F = 8192 the split
+// form's scratch [2, chunk, A, F] float32 and the symbols of one chunk;
+// unused below.  Returns the cudaError_t of the launches.
 extern "C" int ofdm_fft_mrc_bf16(const void* y_re, const void* y_im, int in_int16,
                                  long long stride_k, long long stride_s, long long stride_a,
                                  int K, int S, int A, int F, const float* h_re,
                                  const float* h_im, const float* inv, const float* tw,
-                                 const void* w, float* out_re, float* out_im, void* stream) {
+                                 const void* w, float* out_re, float* out_im, float* scratch,
+                                 int chunk, void* stream) {
   if (K < 1 || S < 1 || A < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long esize = in_int16 ? 2 : 4;
   int align = 16;
@@ -914,25 +1119,27 @@ extern "C" int ofdm_fft_mrc_bf16(const void* y_re, const void* y_im, int in_int1
                            inv, nullptr, nullptr, reinterpret_cast<const float2*>(tw),
                            static_cast<const uint4*>(w), out_re, out_im, nullptr, align};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, st)
-                                   : ofdm::speed::dispatch<float>(F, false, p, st));
+  return static_cast<int>(
+      in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, tw, scratch, chunk, st)
+               : ofdm::speed::dispatch<float>(F, false, p, tw, scratch, chunk, st));
 }
 
 // Pilot rows: p_re/p_im at row (k=0, a=0) of K x A rows, row (k, a) at
 // element k*stride_k + a*stride_a, int16 or float32.  x_re/x_im: [F]
-// padded pilot, natural order, 16-byte aligned.  tw, w as for
-// ofdm_fft_mrc_bf16.  Outputs h_re/h_im [K, A, F] and inv [K, F] =
-// 1/sum_a |h|^2, natural order.
+// padded pilot, natural order, 16-byte aligned.  tw, w, scratch, chunk as
+// for ofdm_fft_mrc_bf16 (the chunk in frames).  Outputs h_re/h_im
+// [K, A, F] and inv [K, F] = 1/sum_a |h|^2, natural order.
 extern "C" int ofdm_pilot_ls_bf16(const void* p_re, const void* p_im, int in_int16,
                                   long long stride_k, long long stride_a, int K, int A, int F,
                                   const float* x_re, const float* x_im, const float* tw,
                                   const void* w, float* h_re, float* h_im, float* inv,
-                                  void* stream) {
+                                  float* scratch, int chunk, void* stream) {
   if (K < 1 || A < 1) return static_cast<int>(cudaErrorInvalidValue);
   ofdm::speed::Params p = {p_re, p_im, stride_k, 0, stride_a, K, 1, A, nullptr, nullptr,
                            nullptr, x_re, x_im, reinterpret_cast<const float2*>(tw),
                            static_cast<const uint4*>(w), h_re, h_im, inv, 2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(in_int16 ? ofdm::speed::dispatch<int16_t>(F, true, p, st)
-                                   : ofdm::speed::dispatch<float>(F, true, p, st));
+  return static_cast<int>(
+      in_int16 ? ofdm::speed::dispatch<int16_t>(F, true, p, tw, scratch, chunk, st)
+               : ofdm::speed::dispatch<float>(F, true, p, tw, scratch, chunk, st));
 }

@@ -17,8 +17,10 @@
 // the last pass register m holds bin j + T m, which is what the MAC reads of
 // h and the store write.  A team is a warp (F = 1024), part of a warp (F <
 // 1024: several teams per warp, __syncwarp with the team's lanes) or a few
-// warps (F >= 2048: a named barrier per team), so no block-wide barrier falls
-// inside a row.  Exchange slot e + e / M spreads every pass's transpose over
+// warps (F >= 2048: a named barrier per team; F = 8192 is one team of 256
+// threads a symbol), so no block-wide barrier falls inside a row.  Past
+// 8192 a row does not fit one SM's registers beside its sums: fft_split.cuh
+// runs F = 16384 and 32768 as two passes of this FFT at F = n1 and 128.  Exchange slot e + e / M spreads every pass's transpose over
 // the 32 banks.  The inter-pass twiddles come from a float32 table computed
 // in float64 on the host (ops/fft_plan.py pass_twiddles), held in shared
 // memory; the R-point DFTs use the exact constants cos(pi k / 16) below.  No
@@ -64,6 +66,7 @@ OFDM_WARP_PLAN(512, 32, 16, 1, 4, 128, 2)
 OFDM_WARP_PLAN(1024, 32, 32, 1, 4, 128, 2)
 OFDM_WARP_PLAN(2048, 32, 8, 8, 2, 128, 1)
 OFDM_WARP_PLAN(4096, 32, 16, 8, 2, 256, 1)
+OFDM_WARP_PLAN(8192, 32, 16, 16, 1, 256, 1)
 #undef OFDM_WARP_PLAN
 
 template <int F>

@@ -11,9 +11,13 @@
 // order, gathered back outside.  Here the rows go through the register FFT
 // of csrc/fft_warp.cuh (the same teams, pipeline and exchange as
 // fft_mrc.cu), whose bins land in natural order: no permutation to undo.
-// F from 64 to 4096: below F = 1024 a team is 8 or 16 lanes and a block of
+// F from 64 to 32768: below F = 1024 a team is 8 or 16 lanes and a block of
 // 128 threads holds 2 (F = 256, 512) or 4 (F = 64, 128) symbols, so each
-// h row a team reads serves that many symbols from L1.
+// h row a team reads serves that many symbols from L1; F = 8192 is one team
+// of 256 threads a symbol (218-224 registers, 204,800 B); F = 16384 and
+// 32768 run the split form (fft_split.cuh): the column pass, then
+// mrc_demod_rows_kernel below, 8 bins k1 of one symbol a block over every
+// antenna (114 registers, no spills, 70,656 B).
 //
 // Bound on this card: bytes, as fft_mrc.cu: 16 antennas x 1024 x 100 f32
 // symbols read 13.1 MB of rows plus 0.13 MB of estimate and write 0.82 MB,
@@ -26,7 +30,7 @@
 
 #include <cstdint>
 
-#include "fft_warp.cuh"
+#include "fft_split.cuh"
 
 namespace ofdm {
 
@@ -98,10 +102,70 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
     OFDM_MRC_DEMOD_CASE(1024)
     OFDM_MRC_DEMOD_CASE(2048)
     OFDM_MRC_DEMOD_CASE(4096)
+    OFDM_MRC_DEMOD_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_MRC_DEMOD_CASE
+}
+
+// F = 16384 and 32768 (fft_split.cuh): the row pass of symbols [item0,
+// item0 + gridDim.y) of the scratch b [n, A, n1, 128], each bin folded as
+// Y hc over every antenna of its block; eq = num * scale / hsqrd, true
+// order.
+template <int N1>
+__global__ void __launch_bounds__(split::kRowThreads)
+mrc_demod_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
+                      long long item0, int A, float scale, const float* __restrict__ hc_re,
+                      const float* __restrict__ hc_im, const float* __restrict__ hsqrd,
+                      const float2* __restrict__ tw, float* __restrict__ out_re,
+                      float* __restrict__ out_im) {
+  constexpr int F = N1 * split::kN2;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const long long il = blockIdx.y;
+  const long long s = item0 + il;
+  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
+  const int k1_0 = blockIdx.x * split::kK1;
+  auto fold = [&](int a, int k1, int k2, float2 y, float& acc_re, float& acc_im) {
+    const long long at = static_cast<long long>(a) * F + k1 + N1 * k2;
+    const float cr = __ldg(hc_re + at), ci = __ldg(hc_im + at);
+    acc_re += y.x * cr - y.y * ci;  // Y * hc, hc already conjugated
+    acc_im += y.x * ci + y.y * cr;
+  };
+  const long long rows = il * A * F;
+  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
+  __syncthreads();
+  const long long row = s * F;
+  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
+    const int g = i % split::kK1, k2 = i / split::kK1;
+    const int bin = k1_0 + g + N1 * k2;
+    const float2 num = split::row_sum(smem, P, g, k2);
+    const float gain = scale / hsqrd[bin];
+    out_re[row + bin] = num.x * gain;
+    out_im[row + bin] = num.y * gain;
+  }
+}
+
+template <int N1>
+cudaError_t split_mrc_demod(bool int16, const void* y_re, const void* y_im,
+                            long long stride_s, long long stride_a, float scale, int S, int A,
+                            const float* hc_re, const float* hc_im, const float* hsqrd,
+                            const float* tw, float* out_re, float* out_im, float* scratch,
+                            int chunk, cudaStream_t stream) {
+  const int P = split::data_teams(A);
+  const size_t smem = split::row_smem_bytes(P);
+  auto kernel = mrc_demod_rows_kernel<N1>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
+  return split::run_split<N1>(
+      int16, y_re, y_im, 0, stride_s, stride_a, S, A, S, tw, scratch, chunk, stream,
+      [&](const float* b_re, const float* b_im, long long i0, int n) {
+        kernel<<<dim3(N1 / split::kK1, n), P * split::kK1 * split::kRowLanes, smem, stream>>>(
+            b_re, b_im, i0, A, scale, hc_re, hc_im, hsqrd, row_tw, out_re, out_im);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace ofdm
@@ -111,14 +175,27 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
 // (scaled by `scale`), float32 otherwise.  aligned: every row starts 16-byte
 // aligned (bases and strides in bytes multiples of 16), which selects the
 // cp.async load path.  hc_re/hc_im: [A, F] conjugated estimate, hsqrd: [F],
-// true order.  tw: the pass twiddles of ops/fft_plan.py.  Outputs
-// out_re/out_im: [S, F], true order.  Returns the cudaError_t of the launch.
+// true order.  tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and
+// 32768 its split table.  Outputs out_re/out_im: [S, F], true order.
+// scratch, chunk: at F = 16384 and 32768 the split form's scratch
+// [2, chunk, A, F] float32 and the symbols of one chunk; unused below.
+// Returns the cudaError_t of the launches.
 extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                               int aligned, long long stride_s, long long stride_a,
                               float scale, int S, int A, int F, const float* hc_re,
                               const float* hc_im, const float* hsqrd, const float* tw,
-                              float* out_re, float* out_im, void* stream) {
+                              float* out_re, float* out_im, float* scratch, int chunk,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 16384 || F == 32768) {
+    auto run_split = [&](auto fn) {
+      return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_s, stride_a, scale, S, A,
+                                 hc_re, hc_im, hsqrd, tw, out_re, out_im, scratch, chunk,
+                                 st));
+    };
+    return F == 16384 ? run_split(ofdm::split_mrc_demod<128>)
+                      : run_split(ofdm::split_mrc_demod<256>);
+  }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_s, stride_a, scale, S, A, hc_re, hc_im, hsqrd,
                     tw, out_re, out_im, st);

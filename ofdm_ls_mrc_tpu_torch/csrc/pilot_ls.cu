@@ -42,6 +42,15 @@
 // bins a rank.  One 4 x 64 pilot moves 4.9 KB: its time is the launch and
 // the cluster's barriers, nothing else.  ptxas (sm_90a): 48-56 registers at
 // F = 64, 72-80 at 128, no spills.
+// F = 8192: a team is 256 threads and a block one team (pilot_max_threads
+// caps it at 256), whose first buffer holds the block's |h|^2 sums (no
+// separate sum, so the block fits: 200,704 B); 162-198 registers, no spills;
+// a 16 x 8192 pilot is a cluster of 8 blocks of 2 rows, ~13 us on an H100.
+// F = 16384 and 32768: the split form (fft_split.cuh): the column pass, then
+// pilot_ls_rows_kernel below, 8 bins k1 of one frame a block over every
+// antenna: h stored as it is formed, sum |h|^2 and inv written by the block
+// itself, no cluster (pilot_plan gives clusters 1); 176 registers, no
+// spills, 70,656 B; a 16 x 32768 pilot ~25 us on an H100.
 // Loops whose trip count depends on the launch are bounded by constants
 // (kMaxTeams, kMaxCluster) so that their loads issue together; the pass
 // twiddles are read through L1.
@@ -50,7 +59,7 @@
 
 #include <cstdint>
 
-#include "fft_warp.cuh"
+#include "fft_split.cuh"
 
 namespace ofdm {
 
@@ -59,17 +68,20 @@ namespace cg = cooperative_groups;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // Most threads a pilot block holds: 128, or two teams where a team is more
-// than 64 threads (F = 4096).  Mirrored by ops/fft_plan.py pilot_max_threads.
+// than 64 threads (F = 4096), but no more than 256 (F = 8192: one team).
+// Mirrored by ops/fft_plan.py pilot_max_threads.
 template <int F>
 __host__ __device__ constexpr int pilot_max_threads() {
-  return 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;
+  return 2 * wfft::Geo<F>::T > 256 ? 256 : 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;
 }
 
 // Dynamic shared memory of a block of `teams` teams: the teams' buffers, X
-// (two planes of F floats), then the block's sum over its teams (F floats).
+// (two planes of F floats), then the block's sum over its teams (F floats;
+// one team sums into its first buffer, which keeps F = 8192 at 200,704 B).
 template <int F>
 __host__ __device__ constexpr size_t pilot_smem_bytes(int teams) {
-  return (static_cast<size_t>(teams) * wfft::Geo<F>::kTeamFloats + 3 * F) * sizeof(float);
+  return (static_cast<size_t>(teams) * wfft::Geo<F>::kTeamFloats + 2 * F + (teams > 1 ? F : 0)) *
+         sizeof(float);
 }
 
 template <int F, typename T, bool kAligned>
@@ -92,7 +104,7 @@ pilot_ls_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
   const int k = blockIdx.y;
   const int j = team.j;
   float* const xs = smem + teams * G_::kTeamFloats;  // X: re [F], im [F]
-  float* const bsum = xs + 2 * F;                    // the block's sum [F]
+  float* const bsum = teams > 1 ? xs + 2 * F : smem;  // the block's sum [F]
 
   // This team's rows: g, g + step, ... < A.
   const int g = rank * teams + team.id;
@@ -150,11 +162,12 @@ pilot_ls_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
     team.sync();  // row i's buffer is free for row i + 2
   }
 
-  // The team's sums into its first buffer, the block's sum into bsum.
+  // The team's sums into its first buffer, the block's sum into bsum (a
+  // block of one team: the buffer is bsum).
 #pragma unroll
   for (int m = 0; m < M; ++m) buf0[j + TT * m] = acc[m];
   __syncthreads();
-  for (int t = threadIdx.x; t < F; t += blockDim.x) {
+  for (int t = threadIdx.x; teams > 1 && t < F; t += blockDim.x) {
     float s = 0.0f;
 #pragma unroll
     for (int p = 0; p < kMaxTeams; ++p) {
@@ -238,10 +251,83 @@ cudaError_t dispatch_pilot(int F, const void* y_re, const void* y_im,
     OFDM_PILOT_CASE(1024)
     OFDM_PILOT_CASE(2048)
     OFDM_PILOT_CASE(4096)
+    OFDM_PILOT_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_PILOT_CASE
+}
+
+// F = 16384 and 32768 (fft_split.cuh): the row pass of frames [item0,
+// item0 + gridDim.y) of the scratch b [n, A, n1, 128].  Each bin of each
+// antenna gives h = Y conj(X) scale / |X|^2, stored at once (natural order),
+// and the block, which holds every antenna of its kK1 bins k1, sums |h|^2
+// over them and writes inv (or the sum) itself: no cluster.  The plan
+// (ops/fft_plan.py pilot_plan) is clusters 1, `teams` antenna teams.
+template <int N1>
+__global__ void __launch_bounds__(split::kRowThreads)
+pilot_ls_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
+                     long long item0, int A, float scale, const float* __restrict__ x_re,
+                     const float* __restrict__ x_im, const float2* __restrict__ tw,
+                     float* __restrict__ h_re, float* __restrict__ h_im,
+                     float* __restrict__ inv, int invert) {
+  constexpr int F = N1 * split::kN2;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const long long il = blockIdx.y;
+  const long long k = item0 + il;
+  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
+  const int k1_0 = blockIdx.x * split::kK1;
+  auto fold = [&](int a, int k1, int k2, float2 y, float& acc, float&) {
+    const int bin = k1 + N1 * k2;
+    const float xr = __ldg(x_re + bin), xi = __ldg(x_im + bin);
+    const float den = __fdividef(scale, xr * xr + xi * xi);
+    const float hr = (y.x * xr + y.y * xi) * den;
+    const float hi = (y.y * xr - y.x * xi) * den;
+    const long long at = (k * A + a) * F + bin;
+    h_re[at] = hr;
+    h_im[at] = hi;
+    acc += hr * hr + hi * hi;
+  };
+  const long long rows = il * A * F;
+  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
+  __syncthreads();
+  float* const inv_k = inv + k * F;
+  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
+    const int g = i % split::kK1, k2 = i / split::kK1;
+    const float s = split::row_sum(smem, P, g, k2).x;
+    inv_k[k1_0 + g + N1 * k2] = invert ? 1.0f / s : s;
+  }
+}
+
+// The split pilot's plan: clusters 1, up to kMaxTeams teams with no team
+// slot idle per row (ops/fft_plan.py pilot_plan), its row-pass shared memory.
+inline bool split_pilot_plan_ok(int A, int clusters, int teams, int rows, long long smem) {
+  const int t0 = split::data_teams(A);
+  const int r = (A + t0 - 1) / t0;
+  return clusters == 1 && rows == r && teams == (A + r - 1) / r &&
+         smem == static_cast<long long>(split::row_smem_bytes(teams));
+}
+
+template <int N1>
+cudaError_t split_pilot(bool int16, const void* y_re, const void* y_im, long long stride_k,
+                        long long stride_a, float scale, int K, int A, int teams,
+                        const float* x_re, const float* x_im, const float* tw, float* h_re,
+                        float* h_im, float* inv, int invert, float* scratch, int chunk,
+                        cudaStream_t stream) {
+  const size_t smem = split::row_smem_bytes(teams);
+  auto kernel = pilot_ls_rows_kernel<N1>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
+  return split::run_split<N1>(
+      int16, y_re, y_im, stride_k, 0, stride_a, 1, A, K, tw, scratch, chunk, stream,
+      [&](const float* b_re, const float* b_im, long long i0, int n) {
+        kernel<<<dim3(N1 / split::kK1, n), teams * split::kK1 * split::kRowLanes, smem,
+                 stream>>>(b_re, b_im, i0, A, scale, x_re, x_im, row_tw, h_re, h_im, inv,
+                           invert);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace ofdm
@@ -252,16 +338,31 @@ cudaError_t dispatch_pilot(int F, const void* y_re, const void* y_im,
 // aligned (the cp.async load path).  clusters, teams, rows, smem: the launch
 // geometry of ops/fft_plan.py pilot_plan(A, F), checked against the kernel's
 // own (cudaErrorInvalidValue when it differs).  x_re/x_im: [F] padded pilot,
-// natural order.  tw: the pass twiddles of ops/fft_plan.py.  Outputs
-// h_re/h_im [K, A, F] and inv [K, F]: 1 / sum_a |h|^2, or the sum itself when
-// invert is 0.  Returns the cudaError_t of the launch.
+// natural order.  tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and
+// 32768 its split table.  Outputs h_re/h_im [K, A, F] and inv [K, F]:
+// 1 / sum_a |h|^2, or the sum itself when invert is 0.  scratch, chunk: at
+// F = 16384 and 32768 the split form's scratch [2, chunk, A, F] float32 and
+// the frames of one chunk; unused below.  Returns the cudaError_t of the
+// launches.
 extern "C" int ofdm_pilot_ls(const void* y_re, const void* y_im, int in_int16,
                              int aligned, long long stride_k, long long stride_a,
                              float scale, int K, int A, int F, int clusters, int teams,
                              int rows, long long smem, const float* x_re,
                              const float* x_im, const float* tw, float* h_re,
-                             float* h_im, float* inv, int invert, void* stream) {
+                             float* h_im, float* inv, int invert, float* scratch, int chunk,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 16384 || F == 32768) {
+    if (K < 1 || A < 1 || !ofdm::split_pilot_plan_ok(A, clusters, teams, rows, smem)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto run_split = [&](auto fn) {
+      return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_k, stride_a, scale, K, A,
+                                teams, x_re, x_im, tw, h_re, h_im, inv, invert, scratch,
+                                chunk, st));
+    };
+    return F == 16384 ? run_split(ofdm::split_pilot<128>) : run_split(ofdm::split_pilot<256>);
+  }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_k, stride_a, scale, K, A, clusters, teams, rows,
                     smem, x_re, x_im, tw, h_re, h_im, inv, invert, st);

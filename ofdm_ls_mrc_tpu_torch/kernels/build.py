@@ -27,7 +27,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("pilot_ls.cu", "fft_mrc.cu", "mrc_demod.cu", "io_probe.cu", "fft_mrc_bf16.cu")
+SOURCES = ("pilot_ls.cu", "fft_mrc.cu", "mrc_demod.cu", "io_probe.cu", "fft_mrc_bf16.cu",
+           "fft_split.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -40,14 +41,15 @@ _F = ctypes.c_float
 # the stream included, is a c_void_p so none is cut to 32 bits.
 SIGNATURES = {
     "ofdm_pilot_ls": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I, _I, _I, _I, _LL,
-                      _P, _P, _P, _P, _P, _P, _I, _P),
+                      _P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
     "ofdm_fft_mrc": (_P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P),
+                     _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "ofdm_mrc_demod": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P),
-    "ofdm_pilot_ls_bf16": (_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+                       _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "ofdm_pilot_ls_bf16": (_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _P),
     "ofdm_fft_mrc_bf16": (_P, _P, _I, _LL, _LL, _LL, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "ofdm_io_auto": (_P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P),
     "ofdm_io_manual": (_P, _P, _I, _I, _I, _P, _P, _I, _F, _I, _I, _I, _P, _P, _P),
 }

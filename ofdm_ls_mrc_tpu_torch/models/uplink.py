@@ -15,7 +15,7 @@ interchangeable across frames and pipelines.
 Routing, as the JAX receiver's (``ofdm_ls_mrc_tpu/models/uplink.py:110-168``),
 each downgrade a ``RuntimeWarning``:
   - 'fused' at an F its kernels do not take (``pipeline.supports_fused``:
-    the powers of two 64-4096) becomes 'fast';
+    the powers of two 64-32768) becomes 'fast';
   - 'fast' with ``fft_impl="xla"`` (the default, ``fft.default_impl``)
     becomes 'composed';
   - 'fast' with 'four_step' or 'matmul' runs ``fastpath.demod_frame_fast``;
@@ -28,7 +28,7 @@ Pallas kernel; the port has its kernels.
 ``exact=False`` selects the bf16 speed mode of the fused whole-frame path
 (``demod_frame``, ``demod_parts``, ``demod_capture``): the two tensor-core
 kernels of ``csrc/fft_mrc_bf16.cu``, about 1e-2 relative error by design,
-at F = 256 to 4096.  As in the JAX package, what has no speed branch there
+at F = 256 to 32768.  As in the JAX package, what has no speed branch there
 stays exact: F = 64 and 128 (the JAX receiver falls back to its 'fast'
 path, which ignores ``exact``), 'fast', 'composed' and the split phase;
 ``rx.exact`` keeps the value given.
@@ -108,7 +108,7 @@ def fast_or_composed(pipeline: str, fft_impl: str, who: str) -> str:
 
 def speed_mode(cfg: FrameConfig, pipeline: str, exact: bool) -> bool:
     """True when exact=False runs the bf16 speed kernels: under 'fused' at
-    an F they cover (256-4096).  Elsewhere the JAX receivers ignore
+    an F they cover (256-32768).  Elsewhere the JAX receivers ignore
     ``exact``, and so do these."""
     return not exact and pipeline == "fused" and pipe.supports_speed(cfg.fft_size)
 

@@ -28,6 +28,12 @@ of bank conflicts; a plane takes ``plane_floats(F)`` floats and a team's two
 buffers ``team_floats(F)``.  Nothing here runs
 a kernel; the wrappers pass ``pass_twiddles`` to the kernels, and the CPU tests
 emulate the kernels' arithmetic on these tables.
+
+Past 8192 one SM cannot hold a row with its sums (16384 complex float32
+values are 128 KB, the register file 256 KB for every thread of the SM), so
+the exact kernels run F = 16384 and 32768 in the four-step split of the
+section "the split form" below (``csrc/fft_split.cuh``), and the bf16 speed
+kernels run F = 8192 to 32768 on its first step.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ PLANS = {
     1024: ((32, 32), 4, 128, 2),
     2048: ((32, 8, 8), 2, 128, 1),
     4096: ((32, 16, 8), 2, 256, 1),
+    8192: ((32, 16, 16), 1, 256, 1),
 }
 
 
@@ -141,7 +148,7 @@ def team_floats(f: int) -> int:
 # The pilot kernel's launch geometry (csrc/pilot_ls.cu)
 # ---------------------------------------------------------------------------
 
-PILOT_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096)
+PILOT_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 MAX_CLUSTER = 8             # the portable thread block cluster size
 
 
@@ -153,18 +160,32 @@ class PilotPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
 
 
+def pilot_team_threads(f: int) -> int:
+    """Threads of a pilot team, the unit that takes one antenna row: the
+    register FFT's T, or at the split sizes the 8 lanes of each of the row
+    pass block's SPLIT_K1 rows (``split_teams``)."""
+    return SPLIT_K1 * plan(SPLIT_N2).threads if f in SPLIT_FFT_SIZES else plan(f).threads
+
+
 def pilot_max_threads(f: int) -> int:
     """Most threads a pilot block holds: 128, or two teams where a team is
-    more than 64 threads (F = 4096).  csrc/pilot_ls.cu pilot_max_threads
-    holds the same rule (its __launch_bounds__)."""
-    return max(128, 2 * plan(f).threads)
+    more than 64 threads (F = 4096), but no more than 256 (F = 8192: one
+    team of 256); at the split sizes the row pass's SPLIT_TEAMS teams.
+    csrc/pilot_ls.cu pilot_max_threads holds the same rule (its
+    __launch_bounds__)."""
+    if f in SPLIT_FFT_SIZES:
+        return SPLIT_TEAMS * pilot_team_threads(f)
+    return min(256, max(128, 2 * plan(f).threads))
 
 
 def pilot_smem_bytes(f: int, teams: int) -> int:
     """Each team's two buffers, X (two planes of F floats), then the block's
-    sum over its teams (F floats); the pilot reads the pass twiddles
-    through L1, not from shared memory."""
-    return 4 * (teams * team_floats(f) + 3 * f)
+    sum over its teams (F floats; a block of one team sums into its first
+    buffer); the pilot reads the pass twiddles through L1, not from shared
+    memory.  At the split sizes the row pass's buffers (``split_smem_bytes``)."""
+    if f in SPLIT_FFT_SIZES:
+        return split_smem_bytes(teams)
+    return 4 * (teams * team_floats(f) + 2 * f + (f if teams > 1 else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,15 +195,17 @@ def pilot_plan(antennas: int, f: int) -> PilotPlan:
     A cluster of C blocks per frame, each block as many one-row teams as its
     thread cap allows, the cluster as large as the rows need up to the
     portable 8; past 8 x teams rows a team takes several (A = 64 at F = 1024:
-    8 blocks x 4 teams x 2 rows).  Raises for a shape the kernel cannot
-    launch."""
+    8 blocks x 4 teams x 2 rows).  At the split sizes the row pass: no
+    cluster (C = 1, a block holds every antenna of its SPLIT_K1 bins k1),
+    up to SPLIT_TEAMS teams, each taking every teams-th row.  Raises for a
+    shape the kernel cannot launch."""
     if f not in PILOT_FFT_SIZES:
         raise ValueError(f"pilot_plan: F={f} not in {PILOT_FFT_SIZES}")
     if antennas < 1:
         raise ValueError(f"pilot_plan: {antennas} antennas")
-    t = plan(f).threads
+    t = pilot_team_threads(f)
     cap = pilot_max_threads(f) // t
-    clusters = min(MAX_CLUSTER, -(-antennas // cap))
+    clusters = 1 if f in SPLIT_FFT_SIZES else min(MAX_CLUSTER, -(-antennas // cap))
     teams = min(cap, -(-antennas // clusters))
     rows = -(-antennas // (clusters * teams))
     teams = -(-antennas // (clusters * rows))  # no team slot left idle per row
@@ -200,6 +223,101 @@ def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
     the blocks' shared memory) and whose inv it writes: [rank F / C,
     (rank + 1) F / C)."""
     return range(rank * f // clusters, (rank + 1) * f // clusters)
+
+
+# ---------------------------------------------------------------------------
+# The split form (csrc/fft_split.cuh, csrc/fft_split.cu)
+# ---------------------------------------------------------------------------
+#
+# F = n1 x 128, x[i1, i2] = x[128 i1 + i2], in two passes through a scratch:
+#   1. the column pass: the n1-point DFT over i1 of each column i2 (the
+#      register FFT at F = n1, one team a column, ``split_columns`` columns a
+#      block of SPLIT_COLUMN_THREADS), times the four-step twiddle
+#      exp(-2 pi i k1 i2 / F) (``speed_twiddles``), into the scratch row
+#      B[k1][i2] of its antenna;
+#   2. the row pass: the 128-point DFT of each B[k1][:] (the register FFT at
+#      F = 128, one 8-lane team a row): bin k1 + n1 k2 in register k2 // 8
+#      of lane k2 % 8.  A block takes SPLIT_K1 bins k1 of one symbol and
+#      every antenna, over up to SPLIT_TEAMS teams, so its sums over the
+#      antennas need no other block.
+# The exact kernels run both passes at F = 16384 and 32768; the speed
+# kernels run the column pass at F = 8192 to 32768 and their bf16 stage 2
+# in place of the row pass.  The symbols go through in chunks
+# (``split_chunk``), each the column pass then the row pass on one scratch
+# [2, chunk, A, F].
+
+SPLIT_FFT_SIZES = (16384, 32768)           # the exact kernels' two-pass sizes
+SPEED_SPLIT_SIZES = (8192, 16384, 32768)   # the speed kernels' (n1 = 64 to 256)
+SPLIT_N2 = 128
+SPLIT_K1 = 8                 # bins k1 of an exact row-pass block
+SPLIT_TEAMS = 4              # antenna teams of an exact row-pass block, at most
+SPLIT_COLUMN_THREADS = 256   # threads of a column-pass block
+SPLIT_SCRATCH_BYTES = 512 << 20  # a chunk's scratch: at most this much, one symbol at least
+
+
+def split_factors(f: int) -> Tuple[int, int]:
+    """(n1, n2) = (F / 128, 128) of the split form; raises for an F that
+    neither the exact nor the speed kernels split."""
+    if f not in SPLIT_FFT_SIZES + SPEED_SPLIT_SIZES:
+        raise ValueError(f"no split form for F={f}; sizes {SPEED_SPLIT_SIZES}")
+    return f // SPLIT_N2, SPLIT_N2
+
+
+def split_columns(n1: int) -> int:
+    """Columns i2 of one column-pass block: a team of the n1-point register
+    FFT each (32 at n1 = 64 and 128, 16 at 256)."""
+    return SPLIT_COLUMN_THREADS // plan(n1).threads
+
+
+def split_column_stride(n1: int) -> int:
+    """Floats of a column's buffer in the column pass: the register FFT's two
+    planes and one more (a warp's 32 samples in one run of 32 columns: an
+    odd stride) or two (two runs of 16: twice an odd number), so that the
+    transposes into and out of the columns spread over the 32 banks."""
+    return 2 * plane_floats(n1) + (1 if split_columns(n1) >= 32 else 2)
+
+
+def split_column_smem_bytes(n1: int) -> int:
+    return 4 * split_columns(n1) * split_column_stride(n1)
+
+
+def split_teams(antennas: int) -> int:
+    """Antenna teams of an exact row-pass block of the data kernels."""
+    return min(SPLIT_TEAMS, antennas)
+
+
+def split_smem_bytes(teams: int) -> int:
+    """Dynamic shared memory of an exact row-pass block: each team's
+    SPLIT_K1 8-lane row teams, two row buffers each (``team_floats(128)``);
+    the sums over the antennas reuse the first buffers."""
+    return 4 * teams * SPLIT_K1 * team_floats(SPLIT_N2)
+
+
+def split_tables_np(f: int, int16: bool = False) -> np.ndarray:
+    """[n, 2] float32 (cos, sin): the pass twiddles of the n1-point column
+    FFT, those of the 128-point row FFT, then the [n1, 128] four-step
+    twiddles (``speed_twiddles_np``, the sc16 scale folded in for the speed
+    kernels' int16 rows).  csrc/fft_split.cuh splits the table by the
+    sizes of the first two."""
+    n1, n2 = split_factors(f)
+    tw = speed_twiddles_np(f, int16).reshape(-1)
+    four = np.stack([tw.real, tw.imag], axis=-1).astype(np.float32)
+    return np.concatenate([pass_twiddles_np(n1), pass_twiddles_np(n2), four])
+
+
+@functools.lru_cache(maxsize=None)
+def split_tables(f: int, int16: bool, device: torch.device) -> torch.Tensor:
+    """``split_tables_np`` on the device."""
+    return torch.from_numpy(split_tables_np(f, int16)).to(device)
+
+
+def split_chunk(items: int, antennas: int, f: int) -> int:
+    """Symbols (the pilot: frames) of one chunk: as many as a scratch of
+    SPLIT_SCRATCH_BYTES holds, at least one, no more than there are.  Fewer,
+    larger launches beat a scratch small enough for L2: a 16 x 32768 frame
+    in chunks of 8 symbols (a 32 MB scratch) took 1.24x the time of one
+    chunk of 100 on an H100 (PERF.md, the split form)."""
+    return max(1, min(items, SPLIT_SCRATCH_BYTES // (antennas * f * 8)))
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +341,15 @@ def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
 # 64 Q + 63 (k2 = 32 Q .. 32 Q + 31 of Wr, then of Wi), two in flight, so
 # that a quarter's epilogue runs while the next multiplies.  A symbol's
 # chunks are spread over a cluster of ``speed_cluster`` blocks.
+#
+# From n1 = 64 (F = 8192) a thread's column of n1 values no longer fits the
+# chunk's registers: stage 1 is the split form's column pass (exact float32,
+# into a scratch), and a block of one warpgroup takes SPEED_ROWS_K1 bins k1
+# of one symbol, a chunk of 32 complex rows of each antenna in turn (row
+# r = a n1 + k1, so chunk c is still rows 32 c .. 32 c + 31), sums over the
+# antennas in its registers and needs no cluster.
 
-SPEED_FFT_SIZES = (256, 512, 1024, 2048, 4096)   # n1 = F / 128 from 2 to 32
+SPEED_FFT_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)   # n1 = F / 128, 2 to 256
 SPEED_N2 = 128
 SPEED_CHUNK_ROWS = 32       # complex rows of a chunk: one m64 tile, re over im per 8
 SPEED_TILE_ROWS = 64        # bf16 rows of the tile
@@ -234,6 +359,8 @@ SPEED_QUARTERS = 4          # stage 2 in four products of 32 bins k2
 SPEED_DATA_CLUSTER = 2      # blocks a data symbol is spread over, at most
 SPEED_PILOT_CLUSTER = 8     # blocks a pilot is spread over, at most
 SPEED_THREADS = {False: 384, True: 256}  # data / pilot: warpgroup 0 the product, the rest stage 1
+SPEED_ROWS_THREADS = 128    # n1 >= 64: one warpgroup a block (the row pass of the split form)
+SPEED_ROWS_K1 = 32          # n1 >= 64: bins k1 of a block, one chunk of each antenna
 SPEED_SBO = 1024            # bytes between 8-row groups of a SW128 K-major operand
 
 
@@ -341,7 +468,10 @@ def speed_smem_bytes(f: int, pilot: bool) -> int:
     """Dynamic shared memory of a speed kernel's block (fft_mrc_bf16.cu
     Smem): W and two tiles; the data path's two row stages and two h
     stages (32 KB each), or the pilot's h staging ([32][132] x 2 planes) and
-    X with 1/|X|^2; 10 barrier slots; 1 KB of alignment slack."""
+    X with 1/|X|^2; 10 barrier slots; 1 KB of alignment slack.  From
+    F = 8192 (the split form's row pass): W and one tile, 1 KB of slack."""
+    if f in SPEED_SPLIT_SIZES:
+        return SPEED_W_ROWS * SPEED_N2 * 2 + SPEED_TILE_ROWS * SPEED_N2 * 2 + 1024
     base = SPEED_W_ROWS * SPEED_N2 * 2 + 2 * SPEED_TILE_ROWS * SPEED_N2 * 2
     stage = 2 * SPEED_CHUNK_ROWS * SPEED_N2 * 4
     mid = 2 * SPEED_CHUNK_ROWS * SPEED_PART_STRIDE * 4 + 12 * f if pilot else 4 * stage

@@ -19,8 +19,15 @@ The speed mode's DFT (``speed_dft``, ``fft_plan``'s speed plan) rounds the
 four-step transform's stage-1 output to bf16 and runs stage 2 as a bf16
 product with float32 accumulation, about 1e-2 relative error by design;
 the rest (LS divide, sum|h|^2, MRC, reference order) is float32 as in the
-exact kernels.  It covers F = 256 to 4096; the speed wrappers raise for
-any other F, as the JAX package's kernel does.
+exact kernels.  It covers F = 256 to 32768 (n1 = F / 128 from 2 to 256);
+the speed wrappers raise for any other F.  The JAX package's kernel has
+no upper F (any (2^k, 128) split); the port's kernels stop at 32768, past
+the largest FFT of a public OFDM standard (DVB-T2's 32K mode).
+
+F = 16384 and 32768 (the exact kernels) and F = 8192 to 32768 (the speed
+kernels) run in the split form of ``fft_plan`` (``csrc/fft_split.cuh``):
+each kernel is then a column pass into a scratch and its own row pass,
+over chunks of symbols; one wrapper call, one count.
 
 The pilot takes ``invert=False`` for the sharded receivers
 (``parallel/``): it then returns the antenna shard's sum_a |h|^2 itself,
@@ -48,7 +55,7 @@ run on the card can show that the path went through the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +72,8 @@ FUSED_FFT_SIZES = fft_plan.PILOT_FFT_SIZES
 MAX_FRAMES = 65535   # frames of one launch: the grid's second dimension
 
 SPEED_FFT_SIZES = fft_plan.SPEED_FFT_SIZES
+SPLIT_FFT_SIZES = fft_plan.SPLIT_FFT_SIZES           # the exact kernels' split form
+SPEED_SPLIT_SIZES = fft_plan.SPEED_SPLIT_SIZES       # the speed kernels'
 
 launch_counts: Dict[str, int] = {"pilot_ls": 0, "fft_mrc": 0, "pilot_ls_sum": 0,
                                  "pilot_ls_bf16": 0, "fft_mrc_bf16": 0}
@@ -77,12 +86,14 @@ def reset_launch_counts() -> None:
 
 def supports_fused(fft_size: int) -> bool:
     """True when the fused kernels cover this FFT size: a power of two from
-    64 to 4096 (csrc/pilot_ls.cu and csrc/fft_mrc.cu instantiate exactly
-    these).  This is wider than the TPU kernel's rule, a (2^k, 128) split,
-    which starts at 256 and sends 64 and 128 to its 'fast' path; here the
-    64-subcarrier configurations run through the same two kernels.  The
-    receivers send any other size to 'fast' or 'composed' with a
-    RuntimeWarning (``warn_fused_fallback``); the wrappers raise."""
+    64 to 32768 (csrc/pilot_ls.cu and csrc/fft_mrc.cu instantiate exactly
+    these, 16384 and 32768 in the split form).  Below, this is wider than
+    the TPU kernel's rule, a (2^k, 128) split, which starts at 256 and sends
+    64 and 128 to its 'fast' path; here the 64-subcarrier configurations run
+    through the same two kernels.  Above, the TPU rule has no bound and this
+    one stops at 32768.  The receivers send any other size to 'fast' or
+    'composed' with a RuntimeWarning (``warn_fused_fallback``); the wrappers
+    raise."""
     return fft_size in FUSED_FFT_SIZES
 
 
@@ -99,9 +110,10 @@ def warn_fused_fallback(fft_size: int, who: str, to: str = "fast") -> None:
 
 def supports_speed(fft_size: int) -> bool:
     """True when the bf16 speed kernels cover this FFT size: the TPU
-    kernel's (2^k, 128) split with n1 >= 2, F = 256 to 4096.  Below it the
+    kernel's (2^k, 128) split with n1 >= 2, F = 256 to 32768.  Below it the
     receivers run the exact kernels, as the JAX receiver falls back to a
-    path that ignores ``exact``."""
+    path that ignores ``exact``; above it the fused kernels stop (and the
+    receivers fall back to 'fast')."""
     return fft_size in SPEED_FFT_SIZES
 
 
@@ -276,6 +288,8 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
     lib = build.load_library()
     int16 = p.dtype == torch.int16
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, chunk = _split_scratch(k, a, f, SPLIT_FFT_SIZES if exact else SPEED_SPLIT_SIZES,
+                                    dev)
     with torch.cuda.device(dev):
         if exact:
             name = "pilot_ls" if invert else "pilot_ls_sum"
@@ -284,9 +298,9 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                 p.re.data_ptr(), p.im.data_ptr(), int(int16),
                 int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
                 plan.clusters, plan.teams, plan.rows, plan.smem_bytes,
-                x_full.re.data_ptr(), x_full.im.data_ptr(),
-                fft_plan.pass_twiddles(f, dev).data_ptr(),
-                h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), int(invert), stream)
+                x_full.re.data_ptr(), x_full.im.data_ptr(), _exact_table(f, dev).data_ptr(),
+                h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), int(invert),
+                _ptr(scratch), chunk, stream)
         else:
             name = "pilot_ls_bf16"
             tw, w = _speed_tables(f, int16, dev)
@@ -294,7 +308,7 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                 p.re.data_ptr(), p.im.data_ptr(), int(int16), p.re.stride(0),
                 p.re.stride(1), k, a, f, x_full.re.data_ptr(), x_full.im.data_ptr(),
                 tw.data_ptr(), w.data_ptr(), h.re.data_ptr(), h.im.data_ptr(),
-                inv.data_ptr(), stream)
+                inv.data_ptr(), _ptr(scratch), chunk, stream)
     build.check(lib, err, name)
     launch_counts[name] += 1
     return (h[0], inv[0]) if single else (h, inv)
@@ -333,6 +347,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     st = y.re.stride()
     int16 = y.dtype == torch.int16
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, chunk = _split_scratch(k * s, a, f, SPLIT_FFT_SIZES if exact else SPEED_SPLIT_SIZES,
+                                    dev)
     with torch.cuda.device(dev):
         if exact:
             name = "fft_mrc"
@@ -340,8 +356,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
                 y.re.data_ptr(), y.im.data_ptr(), int(int16),
                 int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
                 h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
-                fft_plan.pass_twiddles(f, dev).data_ptr(), out.re.data_ptr(),
-                out.im.data_ptr(), stream)
+                _exact_table(f, dev).data_ptr(), out.re.data_ptr(),
+                out.im.data_ptr(), _ptr(scratch), chunk, stream)
         else:
             name = "fft_mrc_bf16"
             if any(t.data_ptr() % 16 for t in (h.re, h.im)):
@@ -351,7 +367,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
             err = lib.ofdm_fft_mrc_bf16(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16), st[0], st[1], st[2], k, s, a,
                 f, h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(),
-                w.data_ptr(), out.re.data_ptr(), out.im.data_ptr(), stream)
+                w.data_ptr(), out.re.data_ptr(), out.im.data_ptr(), _ptr(scratch), chunk,
+                stream)
     build.check(lib, err, name)
     launch_counts[name] += 1
     return out[0] if single else out
@@ -367,13 +384,42 @@ def _check_size(f: int, exact: bool, who: str) -> None:
 
 def _speed_tables(f: int, int16: bool,
                   dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The speed kernels' stage-1 twiddles and bf16 W on ``dev``; W is read
-    in 16-byte pieces."""
-    tw = fft_plan.speed_twiddles(f, int16, dev)
+    """The speed kernels' stage-1 twiddles (from F = 8192 the split form's
+    table) and bf16 W on ``dev``; W is read in 16-byte pieces."""
+    if f in SPEED_SPLIT_SIZES:
+        tw = fft_plan.split_tables(f, int16, dev)
+    else:
+        tw = fft_plan.speed_twiddles(f, int16, dev)
     w = fft_plan.speed_w(dev)
     if w.data_ptr() % 16 or tw.data_ptr() % 8:
         raise ValueError("speed kernels: W must start 16-byte aligned, the twiddles 8-byte")
     return tw, w
+
+
+def _exact_table(f: int, dev: torch.device) -> torch.Tensor:
+    """The exact kernels' twiddles: the register FFT's pass twiddles, or at
+    the split sizes the split form's table."""
+    if f in SPLIT_FFT_SIZES:
+        return fft_plan.split_tables(f, False, dev)
+    return fft_plan.pass_twiddles(f, dev)
+
+
+def _split_scratch(items: int, a: int, f: int, sizes,
+                   dev: torch.device) -> Tuple[Optional[torch.Tensor], int]:
+    """(scratch [2, chunk, A, F] float32, chunk) of the split form's two
+    passes over ``items`` symbols (the pilot: frames) of A rows where the
+    kernel runs that form at F (``sizes``: SPLIT_FFT_SIZES for the exact
+    kernels, SPEED_SPLIT_SIZES for the speed kernels), else (None, 0).  The
+    scratch lives until the caller's last reference goes; the allocator
+    gives it to no later work of the stream before the kernels are done."""
+    if f not in sizes:
+        return None, 0
+    chunk = fft_plan.split_chunk(items, a, f)
+    return torch.empty((2, chunk, a, f), dtype=torch.float32, device=dev), chunk
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------

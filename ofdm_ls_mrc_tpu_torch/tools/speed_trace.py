@@ -49,11 +49,13 @@ def traced_library(cluster: int) -> ctypes.CDLL:
         out.parent.mkdir(parents=True, exist_ok=True)
         flags = ["-DOFDM_SPEED_TRACE"] + ([f"-DOFDM_SPEED_MAX_CLUSTER={cluster}"] if cluster else [])
         subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-o", str(out),
-                        str(build.CSRC_DIR / "fft_mrc_bf16.cu")], check=True)
+                        str(build.CSRC_DIR / "fft_mrc_bf16.cu"),
+                        str(build.CSRC_DIR / "fft_split.cu")], check=True)
     lib = ctypes.CDLL(str(out))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ofdm_fft_mrc_bf16.argtypes = (p, p, i, ll, ll, ll, i, i, i, i, p, p, p, p, p, p, p, p)
-    lib.ofdm_pilot_ls_bf16.argtypes = (p, p, i, ll, ll, i, i, i, p, p, p, p, p, p, p, p)
+    lib.ofdm_fft_mrc_bf16.argtypes = (p, p, i, ll, ll, ll, i, i, i, i, p, p, p, p, p, p, p, p, i,
+                                      p)
+    lib.ofdm_pilot_ls_bf16.argtypes = (p, p, i, ll, ll, i, i, i, p, p, p, p, p, p, p, p, i, p)
     lib.ofdm_speed_trace.argtypes = (p,)
     lib.ofdm_speed_trace_clear.argtypes = ()
     return lib
@@ -92,6 +94,10 @@ def main() -> int:
         print("speed_trace: no CUDA device", file=sys.stderr)
         return 1
     dev, f = torch.device("cuda"), args.fft
+    if f not in fft_plan.SPEED_FFT_SIZES or f in fft_plan.SPEED_SPLIT_SIZES:
+        print(f"speed_trace: traces the cluster kernel, F = 256 to 4096, not {f}",
+              file=sys.stderr)
+        return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"[{card}]")
@@ -107,14 +113,14 @@ def main() -> int:
     last_of_three(lib, lambda: lib.ofdm_fft_mrc_bf16(
         d.re.data_ptr(), d.im.data_ptr(), 0, 0, d.re.stride(0), d.re.stride(1), 1, 100, 16, f,
         h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(), w.data_ptr(),
-        out.re.data_ptr(), out.im.data_ptr(), stream))
+        out.re.data_ptr(), out.im.data_ptr(), None, 0, stream))
     show(lib, f"fft_mrc_bf16, one 16 x {f} x 100 f32 frame")
     ho = CArray(torch.empty(1, 16, f, device=dev), torch.empty(1, 16, f, device=dev))
     io = torch.empty(1, f, device=dev)
     last_of_three(lib, lambda: lib.ofdm_pilot_ls_bf16(
         y[0].re.data_ptr(), y[0].im.data_ptr(), 0, 0, y[0].re.stride(0), 1, 16, f,
         x.re.data_ptr(), x.im.data_ptr(), tw.data_ptr(), w.data_ptr(), ho.re.data_ptr(),
-        ho.im.data_ptr(), io.data_ptr(), stream))
+        ho.im.data_ptr(), io.data_ptr(), None, 0, stream))
     show(lib, f"pilot_ls_bf16, one 16 x {f} f32 pilot")
     return 0
 

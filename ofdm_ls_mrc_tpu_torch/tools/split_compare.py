@@ -1,0 +1,109 @@
+"""Device time of the kernels at the large-F geometry, kernel by kernel, for
+comparing two trees of the port (or two chunk sizes) on one card.
+
+  python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N]
+
+On one 16 x F x 100-symbol frame (f32 rows, and the same rows as int16) at
+F = 8192, 16384 and 32768: ``fused_pipeline`` exact (the register FFT at
+8192; the split form's column pass and ``fft_mrc_rows_kernel`` above) and
+``exact=False`` (the column pass and ``speed_rows_kernel``), ``fused_demod``
+and both pilots, each time the sum of its kernels and each kernel's share
+(torch.profiler device time, the mean over n calls of a trace opened with
+spin kernels that are left out).  ``--chunk N`` caps the split form's
+symbols a chunk at N in place of ``fft_plan.split_chunk``'s choice.  It
+imports ``ofdm_ls_mrc_tpu_torch`` by absolute name, so
+``PYTHONPATH=<another checkout>`` times that checkout's package with the
+same calls: two trees in one call on the same card compare in the order
+X Y Y X.  The last line is a JSON object of every time in microseconds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import ofdm_ls_mrc_tpu_torch
+from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc, ls
+from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+ANTENNAS, SYMBOLS = 16, 101
+SIZES = (8192, 16384, 32768)
+PAD = 16          # spin kernels at the head of a trace
+CALLS = 5
+
+
+def device_split(fn, n: int) -> dict:
+    """Mean device time per call of each of fn's kernels, by name, over a
+    trace of n calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD):
+            torch.cuda._sleep(1000)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="symbols a chunk of the split form, at most (default: split_chunk)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("split_compare: no CUDA device", file=sys.stderr)
+        return 1
+    if args.chunk:
+        plain_chunk = fft_plan.split_chunk
+        fft_plan.split_chunk = lambda items, a, f: min(plain_chunk(items, a, f), args.chunk)
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"package {ofdm_ls_mrc_tpu_torch.__file__}, chunk {args.chunk or 'split_chunk'}"
+          f"  [{card}]")
+    res = {}
+    for f in SIZES:
+        rng = np.random.default_rng(f)
+        z = 0.1 * (rng.standard_normal((SYMBOLS, ANTENNAS, f))
+                   + 1j * rng.standard_normal((SYMBOLS, ANTENNAS, f)))
+        y = CArray.from_numpy(z.astype(np.complex64), dev)
+        del z
+        y16 = CArray(*(torch.round(t * 32767).to(torch.int16) for t in (y.re, y.im)))
+        x = ls.pad_pilot(np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64), dev)
+        h, inv = pipe.estimate_pilot_plain(y[0], x)
+        hc, hs = h.conj(), 1 / inv
+        sides = {
+            f"frame exact F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv),
+            f"frame exact int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv),
+            f"frame bf16 F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv, exact=False),
+            f"frame bf16 int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv, exact=False),
+            f"mrc_demod F={f}": lambda: fused_mrc.fused_demod(y[1:], hc, hs),
+            f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
+            f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
+        }
+        for label, fn in sides.items():
+            split = device_split(fn, CALLS)
+            res[label] = {"us": sum(split.values()), "kernels": split}
+            parts = ", ".join(f"{k.split('(')[0].replace('void ', '')} {v:.1f}"
+                              for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+            print(f"{label}: {res[label]['us']:.1f} us device ({parts})  [{card}]", flush=True)
+        del y, y16, h, inv, hc, hs
+        torch.cuda.empty_cache()
+    print(json.dumps({"package": ofdm_ls_mrc_tpu_torch.__file__, "card": card,
+                      "chunk": args.chunk or None, "us": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,8 @@ between the two float32 orders moves one output by about
 either agrees with the exact path, but not to 2e-5.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -187,7 +189,7 @@ def test_pilot_ls_refuses_a_plan_off_its_layout(dev):
             y.re.data_ptr(), y.im.data_ptr(), 0, 1, 0, y.re.stride(0), 1.0, 1, 16, 1024,
             p.clusters, p.teams, p.rows, p.smem_bytes, x_full.re.data_ptr(),
             x_full.im.data_ptr(), tw.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), inv.data_ptr(),
-            1, torch.cuda.current_stream(dev).cuda_stream)
+            1, None, 0, torch.cuda.current_stream(dev).cuda_stream)
 
     plan = fft_plan.pilot_plan(16, 1024)
     assert launch(plan) == 0
@@ -354,6 +356,125 @@ def test_capture_is_one_launch_per_kernel(dev, cp, dtype):
                                   "pilot_ls_bf16": 0, "fft_mrc_bf16": 0}
     for k in range(3):
         assert max_rel(got[k], rx.demod_frame(frames[k]).to_numpy()) < 1e-6
+
+
+# The large-F geometry: F = 8192 (the register FFT's one team of 256 threads
+# a symbol, the pilot's one-team blocks) and 16384, 32768 (the exact
+# kernels' split form; the speed kernels take it from 8192): the main
+# path's 16 antennas, antenna counts that leave row-pass teams idle or
+# uneven (1, 3, 5), several rows a team (64), one data symbol, and enough
+# symbols for several chunks of the split form's scratch.
+LARGE_GEOMETRIES = [(8192, 16, 101), (8192, 3, 5), (8192, 64, 2), (16384, 16, 30),
+                    (16384, 5, 3), (16384, 1, 2), (32768, 16, 21), (32768, 3, 4),
+                    (32768, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 1, 72])
+@pytest.mark.parametrize("f,a,s", LARGE_GEOMETRIES)
+def test_large_fft_exact_kernels_match_plain(dev, f, a, s, cp, dtype):
+    """pilot_ls (and its sum variant), fft_mrc and mrc_demod at F = 8192 to
+    32768 against their plain versions, one launch each; three pilots in one
+    call."""
+    frame, pilot = frame_on(dev, f, a, s, cp, dtype, seed=5)
+    y = frame[..., cp:]
+    x_full = ls.pad_pilot(pilot, dev)
+    pipe.reset_launch_counts()
+    fused_mrc.reset_launch_counts()
+    h, inv = pipe.estimate_pilot_fused(y[0], x_full)
+    _, hsq = pipe.estimate_pilot_fused(y[0], x_full, invert=False)
+    h_p, inv_p = pipe.estimate_pilot_plain(y[0], x_full)
+    out = pipe.fused_pipeline(y[1:], h_p, inv_p)
+    rx = UplinkReceiver(FrameConfig(num_antennas=a, fft_size=f, cyclic_prefix=cp, frame_len=s),
+                        pilot, pipeline="composed", device=dev)
+    hconj, hsqrd = rx.estimate_channel(frame[0])
+    eq = fused_mrc.fused_demod(y[1:], hconj, hsqrd)
+    many = CArray(torch.stack([y.re[0]] * 3), torch.stack([y.im[0]] * 3))
+    h3, inv3 = pipe.estimate_pilot_fused(many, x_full)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in pipe.launch_counts.items() if v} == {
+        "pilot_ls": 2, "pilot_ls_sum": 1, "fft_mrc": 1}
+    assert fused_mrc.launch_counts["mrc_demod"] == 1
+    assert out.shape == (s - 1, f - 1)
+    want = pipe.fused_pipeline_plain(y[1:], h_p, inv_p).to_numpy()
+    assert max_rel(out.to_numpy(), want) < TOL
+    h_p, sum_p = h_p.to_numpy(), 1 / inv_p.cpu().numpy()
+    assert max_rel(h.to_numpy(), h_p) < TOL and max_rel(1 / inv.cpu().numpy(), sum_p) < TOL
+    assert max_rel(hsq.cpu().numpy(), sum_p) < TOL
+    for k in range(3):
+        assert max_rel(h3.to_numpy()[k], h_p) < TOL
+        assert max_rel(1 / inv3.cpu().numpy()[k], sum_p) < TOL
+    want = fused_mrc.fused_demod_plain(y[1:], hconj, hsqrd).to_numpy()
+    assert max_rel(eq.to_numpy()[:, 1:], want[:, 1:]) < TOL
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("cp", [0, 7])
+@pytest.mark.parametrize("f,a,s", LARGE_GEOMETRIES)
+def test_large_fft_speed_kernels_match_plain(dev, f, a, s, cp, dtype):
+    """pilot_ls_bf16 and fft_mrc_bf16 at F = 8192 to 32768 (the column pass
+    and the one-warpgroup row pass) against their plain versions."""
+    frame, pilot = frame_on(dev, f, a, s, cp, dtype, seed=6)
+    y = frame[..., cp:]
+    x_full = ls.pad_pilot(pilot, dev)
+    pipe.reset_launch_counts()
+    h, inv = pipe.estimate_pilot_fused(y[0], x_full, exact=False)
+    h_p, inv_p = pipe.estimate_pilot_speed_plain(y[0], x_full)
+    out = pipe.fused_pipeline(y[1:], h_p, inv_p, exact=False)
+    torch.cuda.synchronize()
+    assert pipe.launch_counts["pilot_ls_bf16"] == pipe.launch_counts["fft_mrc_bf16"] == 1
+    h_e, inv_e = pipe.estimate_pilot_plain(y[0], x_full)
+    assert_speed_agrees(h.to_numpy(), h_p.to_numpy(), h_e.to_numpy())
+    assert_speed_agrees(1 / inv.cpu().numpy(), 1 / inv_p.cpu().numpy(), 1 / inv_e.cpu().numpy())
+    assert out.shape == (s - 1, f - 1)
+    assert_speed_agrees(out.to_numpy(),
+                        pipe.fused_pipeline_speed_plain(y[1:], h_p, inv_p).to_numpy(),
+                        pipe.fused_pipeline_plain(y[1:], h_p, inv_p).to_numpy())
+
+
+@pytest.mark.parametrize("f", [8192, 16384, 32768])
+def test_large_fft_receiver_on_card_matches_golden(dev, f):
+    """UplinkReceiver(fused) at 16 x F, cp 72 F / 1024, 11 symbols, through a
+    16-tap 25 dB channel: exact within 5e-5 of the golden, bf16 at most
+    -35 dB from it, both below -30 dB against the sent symbols, and no
+    fallback warning."""
+    rng = np.random.default_rng(f)
+    cp = 72 * f // 1024
+    cfg = FrameConfig(num_antennas=16, fft_size=f, cyclic_prefix=cp, frame_len=11)
+    data, _ = sim.random_symbols(rng, (cfg.num_data_symbols, cfg.num_subcarriers), "16qam")
+    pilot = np.exp(2j * np.pi * rng.random(cfg.num_subcarriers)).astype(np.complex64)
+    rx_frame = sim.ChannelModel(16, f, num_taps=16, snr_db=25.0, seed=9).apply(
+        sim.make_tx_frame(data, pilot, cp), cp)
+    gold = golden.demod_frame(rx_frame, pilot, cp)
+    frame = CArray.from_numpy(rx_frame, dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        exact = UplinkReceiver(cfg, pilot, device=dev)
+        speed = UplinkReceiver(cfg, pilot, exact=False, device=dev)
+    pipe.reset_launch_counts()
+    out = exact.demod_frame(frame).to_numpy()
+    fast = speed.demod_frame(frame).to_numpy()
+    assert {k: v for k, v in pipe.launch_counts.items() if v} == {
+        "pilot_ls": 1, "fft_mrc": 1, "pilot_ls_bf16": 1, "fft_mrc_bf16": 1}
+    assert max_rel(out, gold) < 5e-5
+    assert evm_db(fast, gold) <= -35.0
+    for got in (out, fast):
+        assert sim.evm_db(np.fft.fftshift(got, axes=-1), data) < -30.0
+
+
+def test_large_fft_wrappers_raise_past_32768(dev):
+    """F = 65536 has no kernel: each wrapper raises for a CUDA tensor."""
+    frame, pilot = frame_on(dev, 65536, 1, 2, 0, "f32")
+    x_full = ls.pad_pilot(pilot, dev)
+    for exact in (True, False):
+        with pytest.raises(ValueError, match="65536"):
+            pipe.estimate_pilot_fused(frame[0], x_full, exact=exact)
+    h, inv = pipe.estimate_pilot_plain(frame[0], x_full)
+    for exact in (True, False):
+        with pytest.raises(ValueError, match="65536"):
+            pipe.fused_pipeline(frame[1:], h, inv, exact=exact)
+    with pytest.raises(ValueError, match="65536"):
+        fused_mrc.fused_demod(frame[1:], h.conj(), 1 / inv)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

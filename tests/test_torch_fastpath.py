@@ -170,10 +170,12 @@ ROUTES = [
      "the port's kernels take F = 64 and 128; the TPU kernel starts at 256"),
     ("uplink", "fused", "four_step", 192, "fast", "fast", 1, ""),
     ("uplink", "fused", None, 192, "composed", "composed", 2, ""),
-    ("uplink", "fused", "four_step", 8192, "fused", "fast", 1,
-     "the port's fused kernels stop at F = 4096 (ROADMAP queue 2)"),
-    ("uplink", "fused", None, 8192, "composed", "composed", 2,
-     "the port leaves 'fused' for its F, then 'fast' for 'xla'; the JAX one for 'xla'"),
+    ("uplink", "fused", "four_step", 8192, "fused", "fused", 0, ""),
+    ("uplink", "fused", None, 8192, "composed", "fused", 0,
+     "fused keeps the CUDA kernels under 'xla': the JAX downgrade is for XLA without Pallas"),
+    ("uplink", "fused", None, 65536, "composed", "composed", 2,
+     "the port's fused kernels stop at F = 32768, the largest FFT of a public OFDM standard: "
+     "'fused' falls back to 'fast', then to 'composed' for 'xla'"),
     ("uplink", "fast", "four_step", 256, "fast", "fast", 0, ""),
     ("uplink", "fast", "matmul", 1024, "fast", "fast", 0, ""),
     ("uplink", "fast", None, 1024, "composed", "composed", 1, ""),
@@ -181,18 +183,15 @@ ROUTES = [
     ("streaming", "fused", None, 256, "composed", "fused", 0,
      "fused keeps the CUDA kernels under 'xla': the JAX downgrade is for XLA without Pallas"),
     ("streaming", "fused", "four_step", 192, "composed", "composed", 1, ""),
-    ("streaming", "fused", "four_step", 8192, "fused", "composed", 1,
-     "the port's fused kernels stop at F = 4096 (ROADMAP queue 2)"),
+    ("streaming", "fused", "four_step", 8192, "fused", "fused", 0, ""),
     ("streaming", "composed", "matmul", 1024, "composed", "composed", 0, ""),
     ("sharded", "fused", None, 256, "fused", "fused", 0, ""),
     ("sharded", "fused", None, 192, "fast", "fast", 1, ""),
-    ("sharded", "fused", None, 8192, "fused", "fast", 1,
-     "the port's fused kernels stop at F = 4096 (ROADMAP queue 2)"),
+    ("sharded", "fused", None, 8192, "fused", "fused", 0, ""),
     ("sharded", "fast", None, 1024, "fast", "fast", 0, ""),
     ("sharded", "composed", "four_step", 256, "composed", "composed", 0, ""),
     ("sharded-streaming", "fused", None, 192, "fast", "fast", 1, ""),
-    ("sharded-streaming", "fused", None, 8192, "fused", "fast", 1,
-     "the port's fused kernels stop at F = 4096 (ROADMAP queue 2)"),
+    ("sharded-streaming", "fused", None, 8192, "fused", "fused", 0, ""),
     ("sharded-streaming", "fast", None, 256, "fast", "fast", 0, ""),
     ("sharded-streaming", "composed", "matmul", 256, "composed", "composed", 0, ""),
 ]

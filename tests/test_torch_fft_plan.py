@@ -22,7 +22,9 @@ from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 from ofdm_ls_mrc_tpu_torch.ops.fused_mrc import MRC_DEMOD_FFT_SIZES
 
 HEADER = Path(fp.__file__).resolve().parent.parent / "csrc" / "fft_warp.cuh"
-SIZES = sorted(set(MRC_DEMOD_FFT_SIZES) | set(pipe.FUSED_FFT_SIZES))
+# The register FFT's sizes: the fused sizes but the split form's (which run
+# it at F = n1 and 128, tests/test_torch_large_fft.py).
+SIZES = sorted((set(MRC_DEMOD_FFT_SIZES) | set(pipe.FUSED_FFT_SIZES)) - set(fp.SPLIT_FFT_SIZES))
 SMEM_PER_SM = 233472      # H100: 228 KB of shared memory per SM
 SMEM_PER_BLOCK = 232448   # 227 KB opt-in per block
 

@@ -108,7 +108,7 @@ def test_fused_demod_int16_equals_widened_f32(f):
 
 def test_fused_demod_rejects_what_the_kernel_does_not_take():
     th = CArray.from_numpy(np.ones((2, 32), np.complex64), "cpu")
-    for f in (32, 96, 8192):
+    for f in (32, 96, 65536):
         y = CArray.from_numpy(np.ones((3, 2, f), np.complex64), "cpu")
         with pytest.raises(ValueError, match="F="):
             fused_mrc.fused_demod(y, th, torch.ones(f))

@@ -97,7 +97,9 @@ def test_plan_fits_the_card(f):
     rows a team needs and no more, and shared memory within a block's 227 KB
     whose regions that take 16-byte copies (the team buffers, X) start
     16-byte aligned."""
-    t = fp.plan(f).threads
+    t = fp.pilot_team_threads(f)
+    # The split sizes' teams are the row pass's 8-lane teams of 128 bins.
+    team_f = fp.SPLIT_N2 if f in fp.SPLIT_FFT_SIZES else f
     for a in ANTENNAS:
         p = fp.pilot_plan(a, f)
         assert 1 <= p.clusters <= fp.MAX_CLUSTER == 8
@@ -105,7 +107,7 @@ def test_plan_fits_the_card(f):
         assert p.rows == -(-a // (p.clusters * p.teams))
         assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams)
         assert p.smem_bytes <= SMEM_PER_BLOCK
-        assert fp.team_floats(f) % 4 == 0 and (p.teams * fp.team_floats(f)) % 4 == 0
+        assert fp.team_floats(team_f) % 4 == 0 and (p.teams * fp.team_floats(team_f)) % 4 == 0
         assert p.clusters * p.teams * p.rows < a + p.clusters * p.rows  # < 1 idle team a block
 
 
@@ -122,13 +124,21 @@ def test_plan_fits_the_card(f):
     (64, 64, (4, 16, 1)),    # a cluster of 4, 16 bins a rank
     (3, 128, (1, 3, 1)),
     (64, 128, (4, 16, 1)),
+    (16, 8192, (8, 1, 2)),   # one team of 256 threads a block, 2 rows a team
+    (1, 8192, (1, 1, 1)),
+    (64, 8192, (8, 1, 8)),
+    (16, 16384, (1, 4, 4)),  # the split form: no cluster, 4 antenna teams
+    (5, 16384, (1, 3, 2)),
+    (1, 32768, (1, 1, 1)),
+    (16, 32768, (1, 4, 4)),
+    (64, 32768, (1, 4, 16)),
 ])
 def test_plan_shapes(a, f, want):
     assert fp.pilot_plan(a, f)[:3] == want
 
 
 def test_plan_raises_for_what_the_kernel_cannot_launch():
-    for f in (32, 1000, 8192):
+    for f in (32, 1000, 65536):
         with pytest.raises(ValueError, match="F="):
             fp.pilot_plan(16, f)
     with pytest.raises(ValueError, match="antennas"):
@@ -141,12 +151,14 @@ def test_plan_rules_match_the_kernel_source():
     memory layout the kernel checks the plan's bytes against."""
     src = SOURCE.read_text()
     assert int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1)) == fp.MAX_CLUSTER
-    assert "return 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;" in src
+    assert ("return 2 * wfft::Geo<F>::T > 256 ? 256 : 2 * wfft::Geo<F>::T > 128 ? "
+            "2 * wfft::Geo<F>::T : 128;") in src
     assert "const int g = rank * teams + team.id;" in src
     assert "const int step = C * teams;" in src
     assert "const int lo = rank * F / C, hi = (rank + 1) * F / C;" in src
-    assert ("return (static_cast<size_t>(teams) * wfft::Geo<F>::kTeamFloats + 3 * F) * "
-            "sizeof(float);") in src
+    assert ("return (static_cast<size_t>(teams) * wfft::Geo<F>::kTeamFloats + 2 * F + "
+            "(teams > 1 ? F : 0)) *") in src
+    assert "float* const bsum = teams > 1 ? xs + 2 * F : smem;" in src
 
 
 @pytest.mark.parametrize("a", [1, 5, 16])

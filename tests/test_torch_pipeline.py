@@ -155,17 +155,19 @@ def test_reference_order_index(f):
 
 
 # F -> (the port's rule, the reference's rule).  The port's kernels take a
-# power of two from 64 to 4096; the TPU kernel wants a (2^k, 128) split,
-# which starts at 256, and sends 64 and 128 to its 'fast' path.
+# power of two from 64 to 32768; the TPU kernel wants a (2^k, 128) split,
+# which starts at 256 (it sends 64 and 128 to its 'fast' path) and has no
+# upper bound.
 SUPPORTS_FUSED = {64: (True, False), 128: (True, False), 192: (False, False),
                   256: (True, True), 512: (True, True), 1024: (True, True),
-                  2048: (True, True), 4096: (True, True), 8192: (False, True)}
+                  2048: (True, True), 4096: (True, True), 8192: (True, True),
+                  16384: (True, True), 32768: (True, True), 65536: (False, True)}
 
 
 @pytest.mark.parametrize("f", sorted(SUPPORTS_FUSED))
 def test_supports_fused(f):
     """Both rules, case by case: the port's is wider below 256 and stops at
-    the 4096 its register FFT instantiates."""
+    32768 (the register FFT to 8192, its split form at 16384 and 32768)."""
     port, reference = SUPPORTS_FUSED[f]
     assert pipe.supports_fused(f) == port
     assert jpp.supports_fused(f) == reference
