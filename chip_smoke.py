@@ -171,6 +171,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
    every new instantiation (30); then ``demod_app --fft-size 8192
    --sc16-native``, exact and ``--kernel-precision bf16``, whole frame on a
    ring of 4 sc16 frames (every index line clean, 4/4 launches).
+16. tools: each tool and example of the port through its command line on
+   the card (exit 0 required): ``utils.profiling.trace`` around 20
+   demod_frame calls of the main frame, whose ``summarize_trace`` must list
+   pilot_ls and fft_mrc 20 times each within 10% of ``device_time``'s
+   reading of the same kernels; ``tools.latency_probe`` (every body, 16 x
+   1024, batch 256, its book); ``tools.waterfall`` (64-QAM, 16 x 1024 x
+   101, cp 72, SNRs 10-30 dB, one seed, golden/fused/fast/composed,
+   ``--fail-above-db 0.5``); ``tools.ring_bench`` (sc16, the int16 batch
+   read, then ``--decompose``); ``tools.soak`` (20 s, 16 x 1024 x 101 sc16
+   ``--sc16-native --rate 4e6 --num-frames 3``: pass, worst rcs 0);
+   ``tools.scaling_bench`` (fused, NCCL at one rank with 16 and 64
+   antennas, gloo at 1 and 2 ranks with 64, beside the examples: one
+   all-reduce of the expected words, the same at both); the four
+   ``examples`` (OK), all at once.  Each leg's
+   kernel launches join the kernels' record (``launches_tools``).
 
 The second-to-last lines are the kernels' JSON record (with the live path's
 and the three processes' launches; each record's ``time_source`` says where
@@ -260,7 +275,6 @@ DL_FFT, DL_CP, DL_SYMBOLS, DL_FRAMES = 1024, 72, 11, 10
 DL_TOL = 2e-3                # max-abs against the NumPy chain (tests/test_ops.py:146)
 SHARD_ANTENNAS = 64          # phase 13: BASELINE config 4 (64 x 1024 x 101, sc16)
 SHARD_FRAMES, SHARD_RANKS = 3, 2   # leg (b): frames through two ranks' rings
-TRACE_PAD = 16               # spin kernels at the head of each profiler trace
 # Phase 14, the bf16 speed mode: name -> (source, TPU kernel, its branch).
 SPEED_KERNELS = {
     "pilot_ls_bf16": ("fft_mrc_bf16.cu", "ofdm_ls_mrc_tpu/ops/pallas_pipeline.py:222",
@@ -286,6 +300,14 @@ LARGE_KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 LARGE_REPS = 5               # calls of each timing at phase 15's sizes
 LARGE_APP_FFT, LARGE_APP_FRAMES = 8192, 4   # phase 15's demod_app run
+# Phase 16, the tools and examples of the port.
+TOOL_CALLS = 20              # demod_frame calls in the profiling leg's trace
+LATENCY_BODIES = ("fused", "composed", "fused-sc16", "fused-sharded", "fast-sharded")
+WATERFALL_SNRS = "10,15,20,25,30"
+SOAK_SECONDS = 20
+SCALING_TIMED = ((ANTENNAS, ("--shards", "1")), (SHARD_ANTENNAS, ("--shards", "1")))
+SCALING_STRUCTURE = (SHARD_ANTENNAS, ("--shards", "1,2", "--backend", "gloo"))
+EXAMPLES = ("loopback_demod", "ring_pipeline", "sharded_mesh", "downlink_zf")
 
 
 def small_records():
@@ -712,26 +734,6 @@ def payload_frames(rows, starts):
     n = SYMBOLS * (FFT + CP)
     return np.stack([rows[:, s0:s0 + n].reshape(ANTENNAS, SYMBOLS, FFT + CP).transpose(1, 0, 2)
                      for s0 in starts])
-
-
-def trace_events(fn, n: int):
-    """(name, count, total us) of every device event in one torch.profiler
-    trace of n calls of fn.  Late in this script's process the profiler
-    loses the first 6-8 device events of each trace (seen on an H100 after
-    the live phases), so a trace opens with TRACE_PAD spin kernels, which
-    are left out of what it returns."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD):
-            torch.cuda._sleep(1000)
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
 
 
 def producer_split(rows, golden, card) -> dict:
@@ -1865,65 +1867,235 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
     return rec, records
 
 
-def call_ms(fn, n: int) -> float:
-    """Per call, CUDA events around n back-to-back calls: the host's
-    launch work is inside when it is slower than the device."""
+def trace_head(logdir: str) -> dict:
+    """The spin kernels a trace() holds and the first three other kernels,
+    in time order: where a trace lost events."""
+    import glob
+
+    path = glob.glob(os.path.join(logdir, "*.pt.trace.json"))[0]
+    with open(path) as fh:
+        ev = sorted((e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"),
+                    key=lambda e: e["ts"])
+    return {"spin": sum("spin_kernel" in e["name"] for e in ev),
+            "first": [e["name"][:24] for e in ev if "spin_kernel" not in e["name"]][:3]}
+
+
+def last_json(stdout: str) -> dict:
+    return json.loads([ln for ln in stdout.splitlines() if ln.startswith("{")][-1])
+
+
+def tools_phase(workdir, card, rx, frame_dev, reset_counts, counts) -> tuple:
+    """Phase 16 (see the module docstring): ``rx`` is the main path's
+    receiver and ``frame_dev`` its frame on the card.  Returns the phase's
+    records and each leg's kernel launches."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    from ofdm_ls_mrc_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    rec, launches = {"leg_seconds": {}}, {}
+
+    def leg(name, t0):
+        rec["leg_seconds"][name] = time.perf_counter() - t0
+        print(f"tools {name}: {rec['leg_seconds'][name]:.1f} s")
+
+    # profiling: a trace of TOOL_CALLS demod_frame calls of the main frame.
+    # Late in this process the profiler now and then drops a device event
+    # even behind the spin pad (PERF.md section 7), so, as device_ms does,
+    # up to three traces are taken and the first whole one is read.
+    t0 = time.perf_counter()
+    shown = []
+    for attempt in range(3):
+        logdir = os.path.join(workdir, f"trace{attempt}")
+        torch.cuda.synchronize()
+        reset_counts()
+        with profiling.trace(logdir):
+            for _ in range(TOOL_CALLS):
+                rx.demod_frame(frame_dev)
+        launches["profiling"] = counts()
+        summary = profiling.summarize_trace(logdir)
+        named = {k: [(name, s, c) for name, (s, c) in summary.items() if f"{k}_kernel" in name]
+                 for k in ("pilot_ls", "fft_mrc")}
+        shown.append({**{k: sum(h[2] for h in hits) for k, hits in named.items()},
+                      **trace_head(logdir)})
+        if all(len(hits) == 1 and hits[0][2] == TOOL_CALLS for hits in named.values()):
+            break
+    if len(shown) > 1:
+        print(f"note: trace() occurrences of pilot_ls and fft_mrc in {len(shown)} traces of "
+              f"{TOOL_CALLS} calls: {shown}")
+    d = profiling.device_time(lambda _: rx.demod_frame(frame_dev), [None], reps=TOOL_CALLS,
+                              device="cuda", detail=True)
+    for k, hits in named.items():
+        require(len(hits) == 1 and hits[0][2] == TOOL_CALLS,
+                f"profiling: summarize_trace lists {hits} for {k} in three traces, want one "
+                f"kernel with {TOOL_CALLS} occurrences")
+    traced_ms = sum(hits[0][1] for hits in named.values()) * 1e3
+    timed_ms = sum(v for key, v in d["split"].items()
+                   if "pilot_ls_kernel" in key or "fft_mrc_kernel" in key) * TOOL_CALLS
+    require(abs(traced_ms - timed_ms) <= 0.1 * timed_ms,
+            f"profiling: the trace's {traced_ms:.4f} ms against device_time's {timed_ms:.4f} ms "
+            f"for {TOOL_CALLS} calls")
+    print(f"tools profiling: trace() of {TOOL_CALLS} demod_frame calls: "
+          + ", ".join(f"{hits[0][0][:40]} x{hits[0][2]} {hits[0][1] * 1e6 / hits[0][2]:.2f} us"
+                      for hits in named.values())
+          + f"; summed {traced_ms * 1e3:.2f} us against device_time's {timed_ms * 1e3:.2f} us "
+            f"({(traced_ms / timed_ms - 1) * 100:+.2f}%); device_time of a call, all kernels "
+            f"{d['ms'] * 1e3:.2f} us ({d['source']})  [{card}]")
+    rec["profiling"] = {"trace_ms": traced_ms, "device_time_ms": timed_ms, "traces": shown,
+                        "call_device_us": d["ms"] * 1e3, "kernels": {
+                            k: {"name": h[0][0], "count": h[0][2], "seconds": h[0][1]}
+                            for k, h in named.items()}}
+
+    leg("profiling", t0)
+
+    t0 = time.perf_counter()
+    # latency_probe: every body at 16 x 1024, batch 256.
+    book = os.path.join(workdir, "latency.json")
+    out = port_cli("tools.latency_probe", ["--bodies", ",".join(LATENCY_BODIES),
+                                           "--record", book], timeout=600)
+    lines = [ln for ln in out.splitlines() if ln.split(" ")[0] in LATENCY_BODIES]
+    require(len(lines) == len(LATENCY_BODIES), f"latency_probe printed {lines}")
+    for ln in lines:
+        print(f"tools latency_probe: {ln}")
+    with open(book) as fh:
+        rec["latency_book"] = json.load(fh)
+    require(sorted(rec["latency_book"]) == sorted(f"{b}-{ANTENNAS}ant-fft{FFT}"
+                                                  for b in LATENCY_BODIES),
+            f"latency book keys {sorted(rec['latency_book'])}")
+    print(f"tools latency_probe book: {json.dumps(rec['latency_book'])}")
+    rec["latency_lines"] = lines
+    launches["latency_probe"] = profiling.summed_launch_lines(out)
+
+    leg("latency_probe", t0)
+
+    t0 = time.perf_counter()
+    # waterfall: the 64-QAM record at the main geometry.
+    wf_path = os.path.join(workdir, "waterfall.json")
+    out = port_cli("tools.waterfall", ["--scheme", "64qam", "--snrs", WATERFALL_SNRS,
+                                       "--seeds", "1", "--pipelines", "golden,fused,fast,composed",
+                                       "--fail-above-db", "0.5", "--out", wf_path], timeout=600)
+    for ln in out.splitlines():
+        if ln.startswith("[waterfall]"):
+            print(f"tools waterfall: {ln}")
+    with open(wf_path) as fh:
+        rec["waterfall"] = json.load(fh)
+    require(len(rec["waterfall"]["rows"]) == len(WATERFALL_SNRS.split(",")),
+            "waterfall: a row is missing")
+    print(f"tools waterfall: {json.dumps(last_json(out))}  [{card}]")
+    launches["waterfall"] = profiling.summed_launch_lines(out)
+
+    leg("waterfall", t0)
+
+    t0 = time.perf_counter()
+    # ring_bench: sc16, the int16 batch read, then the legs apart.
+    ring = ["--antennas", str(ANTENNAS), "--fft", str(FFT), "--cp", str(CP), "--dtype", "sc16",
+            "--batch", "--i16"]
+    rec["ring_bench"] = [last_json(port_cli("tools.ring_bench", ring + extra))
+                         for extra in ([], ["--decompose"])]
+    for r in rec["ring_bench"]:
+        print(f"tools ring_bench: {json.dumps(r)}  [{card}]")
+
+    leg("ring_bench", t0)
+
+    t0 = time.perf_counter()
+    # soak: the documented hardware soak, cut to SOAK_SECONDS, three frames.
+    r = subprocess.run([sys.executable, "-m", "ofdm_ls_mrc_tpu_torch.tools.soak",
+                        "--seconds", str(SOAK_SECONDS), "--antennas", str(ANTENNAS),
+                        "--fft-size", str(FFT), "--frame-len", str(SYMBOLS), "--ring-dtype",
+                        "sc16", "--sc16-native", "--rate", "4e6", "--num-frames", "3",
+                        "--dir", os.path.join(workdir, "soak")],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    require(r.returncode == 0, f"soak exited {r.returncode}:\n{r.stdout}\n{r.stderr[-4000:]}")
+    soak = last_json(r.stdout)
+    require(soak["pass"] and soak["rx_rc"] == 0 and soak["demod_rc"] == 0,
+            f"soak: {json.dumps(soak)}")
+    print(f"tools soak: pass, {soak['clean_frames']} clean / {soak['dirty_frames']} dirty, "
+          f"clean_fraction {soak['clean_fraction']:.4f}, rx_rc {soak['rx_rc']}, demod_rc "
+          f"{soak['demod_rc']}, EVM clean max {soak['evm_clean_db']['max']:.2f} dB  [{card}]")
+    print(f"tools soak record: {json.dumps(soak)}")
+    rec["soak"] = soak
+    launches["soak"] = soak["launches"]
+
+    leg("soak", t0)
+
+    t0 = time.perf_counter()
+    # scaling_bench: NCCL at world size 1 with 16 and 64 antennas, in turn.
+    rec["scaling"], launches["scaling_bench"] = [], {}
+
+    def scaling(antennas, out):
+        sc = last_json(out)
+        for ln in out.splitlines():
+            if ln.startswith(("ant=", "structure@")):
+                print(f"tools scaling_bench {antennas} antennas: {ln}  [{card}]")
+        st = sc["structure"]
+        require(st["all_reduce_count"] == 1
+                and st["all_reduce_fp32_words"] == st["expected_fp32_words"]
+                and st["payload_constant_across_shards"],
+                f"scaling_bench structure: {json.dumps(st)}")
+        rec["scaling"].append(sc)
+        for row in sc["rows"]:
+            for k, v in row["launches"].items():
+                launches["scaling_bench"][k] = launches["scaling_bench"].get(k, 0) + v
+
+    for antennas, flags in SCALING_TIMED:
+        scaling(antennas, port_cli("tools.scaling_bench", ["--antennas", str(antennas),
+                                                           "--pipeline", "fused", *flags],
+                                   timeout=900))
+    leg("scaling_bench", t0)
+
+    # Then the scaling structure on gloo ranks of the one card and the
+    # examples (on the card by default), all at once: their lines are
+    # structure and accuracy, not times.
+    t0 = time.perf_counter()
+    antennas, flags = SCALING_STRUCTURE
+    cmds = {f"example {name}": [f"examples.{name}"] for name in EXAMPLES}
+    cmds["scaling_bench"] = ["tools.scaling_bench", "--antennas", str(antennas), "--pipeline",
+                             "fused", *flags]
+    procs = {label: subprocess.Popen([sys.executable, "-m", f"ofdm_ls_mrc_tpu_torch.{cmd[0]}",
+                                      *cmd[1:]], cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for label, cmd in cmds.items()}
+    try:
+        for label, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            require(p.returncode == 0, f"{label} exited {p.returncode}:\n{out}\n{err}")
+            if label == "scaling_bench":
+                scaling(antennas, out)
+                continue
+            require(out.splitlines()[-1] == "OK", f"{label}: {out}")
+            for ln in out.splitlines():
+                print(f"tools {label}: {ln}")
+            launches[label] = profiling.summed_launch_lines(out)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    leg("scaling structure and examples", t0)
+    for name in ("profiling", "latency_probe", "waterfall", "soak"):
+        require(launches[name].get("fft_mrc", 0) > 0, f"{name}: fft_mrc was not launched")
+    print(f"tools launches: {json.dumps(launches)}")
+    print(f"phase 16 (tools): {time.perf_counter() - t_phase:.1f} s")
+    return rec, launches
+
+
+def call_ms(fn, n: int) -> float:
+    """Per call, CUDA events around n back-to-back calls
+    (``profiling.call_time``): the host's launch work is inside when it is
+    slower than the device."""
+    from ofdm_ls_mrc_tpu_torch.utils import profiling
+
+    return profiling.call_time(fn, n, "cuda") * 1e3
+
 
 def device_ms(fn, n: int) -> dict:
-    """Per call, the device time of each CUDA kernel fn runs, by name
-    (torch.profiler): the kernel's mean over the occurrences a trace of
-    n calls holds, times its occurrences in one call, which a trace of
-    one call gives.  The profiler now and then loses events (a trace
-    without the device's, or with only some calls' kernels), so of up
-    to three traces of n calls the fullest is read, a whole one ending
-    the tries.  A kernel that trace lacks takes its time from the
-    one-call trace and is listed in "missing"; a kernel the one-call
-    trace lacks counts its occurrences over n.  "partial" says the
-    trace read was not shown whole; "ms" (their sum) is None when no
-    trace held a device event."""
-    import torch
+    """Per call, the device time of each CUDA kernel fn runs, by name:
+    ``profiling.device_time`` of fn as one item, n calls a trace ("ms",
+    "split", "partial", "missing"; see ``profiling._device_reading``)."""
+    from ofdm_ls_mrc_tpu_torch.utils import profiling
 
-    fn()
-    torch.cuda.synchronize()
-    one = {}
-    for _ in range(3):
-        one = {key: (count, t_us / count)
-               for key, count, t_us in trace_events(fn, 1) if t_us > 0}
-        if one:
-            break
-    want = {key: count * n for key, (count, _) in one.items()}
-    best = []
-    for _ in range(3):
-        events = [e for e in trace_events(fn, n) if e[2] > 0]
-        if sum(e[1] for e in events) > sum(e[1] for e in best):
-            best = events
-        if want and {key: count for key, count, _ in best} == want:
-            break
-    held = {key: count for key, count, _ in best}
-    split = {key: t_us / count * (one[key][0] if key in one else count / n) / 1e3
-             for key, count, t_us in best}
-    missing = sorted(set(one) - set(held))
-    split.update({key: one[key][0] * one[key][1] / 1e3 for key in missing})
-    partial = bool(split) and held != want
-    if partial:
-        print(f"note: a partial trace of {n} calls: {sum(held.values())} of "
-              f"{sum(want.values()) if want else 'an unknown number of'} kernel occurrences "
-              f"held" + (f"; from the one-call trace: {', '.join(k[:40] for k in missing)}"
-                         if missing else ""))
-    return {"ms": sum(split.values()) if split else None, "split": split,
-            "partial": partial, "missing": missing}
+    return profiling.device_time(lambda _: fn(), [None], reps=n, device="cuda", detail=True)
+
 
 def measure(kernel_fn, plain_fn, n: int, library_fn=None):
     """Events in the order plain, kernel, kernel, plain (mean of each
@@ -2728,6 +2900,10 @@ def main() -> int:
         large, large_records = large_fft_phase(workdir, dev, card, golden, sim, reset_counts,
                                                counts, measure, io_floor, ptxas.getvalue())
 
+    # -- 16. the tools and examples of the port, each through its command line
+    with tempfile.TemporaryDirectory() as workdir:
+        tools, tool_launch = tools_phase(workdir, card, rx, frame_dev, reset_counts, counts)
+
     # Work of each kernel at the timed shapes (f32 in, one frame; the probes
     # one frame of 101 symbols): each input read once, each output written once.
     a, f, s = ANTENNAS, FFT, SYMBOLS - 1
@@ -2796,12 +2972,16 @@ def main() -> int:
                     "launches_streaming": sharded["streaming"]["launches"]["pilot_ls_sum"]})
     records.extend(speed_records)
     records.extend(large_records)
+    for rec in records:
+        if " F=" not in rec["name"]:
+            rec["launches_tools"] = {leg: n.get(rec["name"], 0) for leg, n in tool_launch.items()}
 
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "ofdm_ls_mrc_tpu" or m.startswith("ofdm_ls_mrc_tpu.")
                     for m in sys.modules), "the JAX package was imported")
     print(json.dumps({"live": live, "baseline": baseline, "downlink": downlink,
-                      "sharded": sharded, "speed": speed, "large_fft": large, "card": card}))
+                      "sharded": sharded, "speed": speed, "large_fft": large, "tools": tools,
+                      "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

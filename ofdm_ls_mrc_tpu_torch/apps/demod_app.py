@@ -184,18 +184,10 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _launch_counts() -> dict:
-    from ..ops import fused_mrc
-    from ..ops import pipeline as pipe
-    return {**pipe.launch_counts, **fused_mrc.launch_counts}
-
-
 def _reset_launch_counts() -> None:
-    from ..ops import fused_mrc
-    from ..ops import pipeline as pipe
     from ..parallel import collectives
-    pipe.reset_launch_counts()
-    fused_mrc.reset_launch_counts()
+    from ..utils import profiling
+    profiling.reset_kernel_launches()
     collectives.reset()
 
 
@@ -203,7 +195,8 @@ def _report_run(frames: int, seconds: float, samples_per_frame: int,
                 sharded: bool = False) -> None:
     """The frame loop's kernel launches (and, sharded, its all-reduces) and
     throughput, one line each."""
-    print(f"kernel launches {json.dumps(_launch_counts())}")
+    from ..utils import profiling
+    print(f"kernel launches {json.dumps(profiling.kernel_launches())}")
     if sharded:
         from ..parallel import collectives
         print(f"all-reduce {json.dumps(collectives.counts)}")

@@ -28,14 +28,14 @@ from __future__ import annotations
 import argparse
 import math
 import os
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 import numpy as np
 
-REPO = Path(__file__).resolve().parents[2]
+from . import ranks
+
 EVM_DB = -70.0
 EVM_BF16_DB = -35.0
 A, F, CP, S, SEED = 4, 256, 16, 7, 11
@@ -145,23 +145,10 @@ def run_ranks(mesh: str, device: str, workdir: str) -> list:
     world = a_sh * t_sh
     d = Path(workdir) / mesh
     d.mkdir()
-    cmds = [[sys.executable, "-m", "ofdm_ls_mrc_tpu_torch.tools.accuracy_sweep", "--worker",
-             "--store", str(d / "store"), "--world", str(world), "--rank", str(r),
-             "--mesh", mesh, "--out", str(d), "--device", device] for r in range(world)]
-    procs = [subprocess.Popen(c, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
-    try:
-        outs = [p.communicate(timeout=WALL_S)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        raise RuntimeError(f"a rank of the {mesh} mesh passed the {WALL_S} s wall limit")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of the {mesh} mesh exited {p.returncode}:\n{out}")
+    ranks.run_ranks([ranks.module_cmd("ofdm_ls_mrc_tpu_torch.tools.accuracy_sweep", "--worker",
+                                      "--store", d / "store", "--world", world, "--rank", r,
+                                      "--mesh", mesh, "--out", d, "--device", device)
+                     for r in range(world)], WALL_S, f"the {mesh} mesh")
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
 
 

@@ -1,1 +1,2 @@
-"""Utilities of the port: the phase timer (``timing.py``)."""
+"""Utilities of the port: the phase timer (``timing.py``) and the profiler
+reading (``profiling.py``)."""
