@@ -168,7 +168,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1.06 GB each); each kernel's device time on the frame beside its plain
    version, torch.fft.fft of its rows and its bound (3.35 TB/s and the
    measured io floor), the capture's per frame, and the ptxas lines of
-   every new instantiation (30); then ``demod_app --fft-size 8192
+   every new instantiation (30); the three pilots on a 64-antenna pilot
+   (f32 and int16) against their plain versions; for each pilot at each F one line with its
+   time, its column-pass and row-pass times, its parent form's time
+   (PERF.md, the kernel table), torch.fft.fft's, its bound and its ptxas
+   lines; then
+   ``demod_app --fft-size 8192
    --sc16-native``, exact and ``--kernel-precision bf16``, whole frame on a
    ring of 4 sc16 frames (every index line clean, 4/4 launches).
 16. tools: each tool and example of the port through its command line on
@@ -312,6 +317,13 @@ LARGE_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fft_mrc_bf16": SPEED_KERNELS["fft_mrc_bf16"][:2],
 }
 LARGE_REPS = 5               # calls of each timing at phase 15's sizes
+WIDE_PILOT_ANTENNAS = 64     # phase 15 holds the pilots at this width too
+# The pilots' parent form (one launch of N1 / K1 blocks over every antenna),
+# device us of one 16 x F f32 pilot as PERF.md's kernel table records it
+# (phase 15 on the parent form).
+LARGE_PILOT_PARENT_US = {"pilot_ls": {8192: 12.63, 16384: 23.09, 32768: 24.29},
+                         "pilot_ls_sum": {8192: 12.76, 16384: 23.02, 32768: 25.59},
+                         "pilot_ls_bf16": {8192: 78.38, 16384: 81.51, 32768: 82.94}}
 LARGE_APP_FFT, LARGE_APP_FRAMES = 8192, 4   # phase 15's demod_app run
 # Phase 16, the tools and examples of the port.
 TOOL_CALLS = 20              # demod_frame calls in the profiling leg's trace
@@ -1553,25 +1565,46 @@ def large_ptxas_lines(report: str):
             r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod|pilot_ls)_rows_kernel"
             r"ILi(\d+)EE" + tail, report, re.S):
         f = 128 * int(n1)
-        smem = (fft_plan.pilot_plan(ANTENNAS, f).smem_bytes if name == "pilot_ls"
-                else fft_plan.split_smem_bytes(teams))
+        if name == "pilot_ls":
+            plan = fft_plan.pilot_plan(ANTENNAS, f)
+            smem, threads = plan.smem_bytes, (f"{plan.threads} threads a block, a cluster of "
+                                              f"{plan.clusters} for 8 bins k1")
+        else:
+            smem, threads = fft_plan.split_smem_bytes(teams), f"{teams * 64} threads a block"
         yield (f"ptxas {name}_rows<F {f}> (row pass): {regs} registers, {spill} B spilled, "
-               f"{smem} B dynamic shared memory, {teams * 64} threads a block ({ANTENNAS} "
-               f"antennas)")
+               f"{smem} B dynamic shared memory, {threads} ({ANTENNAS} antennas)")
     for n1, t, spill, regs in re.findall(
             r"Compiling entry function '_ZN4ofdm5split\d+column_pass_kernelILi(\d+)E(\w)EE"
             + tail, report, re.S):
         yield (f"ptxas column_pass<n1 {n1}, {'int16' if t == 's' else 'float'}>: {regs} "
                f"registers, {spill} B spilled, {fft_plan.split_column_smem_bytes(int(n1))} B "
                f"dynamic shared memory, {fft_plan.SPLIT_COLUMN_THREADS} threads a block")
-    for n1, pilot, spill, regs in re.findall(
-            r"Compiling entry function '_ZN4ofdm5speed\d+speed_rows_kernelILi(\d+)ELb(\d)EE"
+    for name, n1, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm5speed\d+(speed|pilot)_rows_kernelILi(\d+)EE"
             + tail, report, re.S):
         f = 128 * int(n1)
-        yield (f"ptxas speed_rows<F {f}, {'pilot_ls_bf16' if pilot == '1' else 'fft_mrc_bf16'}>"
+        pilot = name == "pilot"
+        cluster = (f", a cluster of {fft_plan.speed_cluster(ANTENNAS, f, True)} for 32 bins k1 "
+                   f"({ANTENNAS} antennas)" if pilot else "")
+        threads = fft_plan.SPEED_PILOT_ROWS_THREADS if pilot else fft_plan.SPEED_ROWS_THREADS
+        yield (f"ptxas {name}_rows<F {f}, {'pilot_ls_bf16' if pilot else 'fft_mrc_bf16'}>"
                f": {regs} registers, {spill} B spilled, "
-               f"{fft_plan.speed_smem_bytes(f, pilot == '1')} B dynamic shared memory, "
-               f"{fft_plan.SPEED_ROWS_THREADS} threads a block")
+               f"{fft_plan.speed_smem_bytes(f, pilot)} B dynamic shared memory, "
+               f"{threads} threads a block{cluster}")
+
+
+def pilot_ptxas(lines, name: str, f: int) -> list:
+    """Phase 15's ptxas lines of one pilot at F: its kernel (the register
+    plan at 8192, else the row pass) and, where it runs one, the column
+    pass."""
+    column = f"column_pass<n1 {f // 128}, float>"
+    if name == "pilot_ls_bf16":
+        keys = (f"pilot_rows<F {f},", column)
+    elif f == 8192:
+        keys = ("pilot_ls<8192, float, cp.async loads>",)
+    else:
+        keys = (f"pilot_ls_rows<F {f}>", column)
+    return [ln for ln in lines if any(k in ln for k in keys)]
 
 
 def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, io_floor,
@@ -1637,14 +1670,25 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                         f"{name} F={f} {label}: EVM {e_kp:.2f} dB (plain vs exact {e_pe:.2f}), "
                         f"max-rel {rel:.3e}")
 
-            def hold(label, x, p_rows, d_rows, hc=None, hs=None):
-                """Each kernel against its plain version on these rows."""
+            def hold_pilots(label, x, p_rows):
+                """The three pilots against their plain versions on these rows."""
                 h_k, inv_k = pipe.estimate_pilot_fused(p_rows, x)
                 _, sum_k = pipe.estimate_pilot_fused(p_rows, x, invert=False)
                 h_p, inv_p = pipe.estimate_pilot_plain(p_rows, x)
                 exact_check("pilot_ls", label, [(h_k.to_numpy(), h_p.to_numpy()),
                                                 (1 / inv_k.cpu().numpy(), 1 / inv_p.cpu().numpy())])
                 exact_check("pilot_ls_sum", label, [(sum_k.cpu().numpy(), 1 / inv_p.cpu().numpy())])
+                hb, ib = pipe.estimate_pilot_fused(p_rows, x, exact=False)
+                hbp, ibp = pipe.estimate_pilot_speed_plain(p_rows, x)
+                speed_check("pilot_ls_bf16", f"{label} h", hb.to_numpy(), hbp.to_numpy(),
+                            h_p.to_numpy())
+                speed_check("pilot_ls_bf16", f"{label} sum|h|^2", *(1 / v.cpu().numpy()
+                                                                    for v in (ib, ibp, inv_p)))
+                return h_p, inv_p
+
+            def hold(label, x, p_rows, d_rows, hc=None, hs=None):
+                """Each kernel against its plain version on these rows."""
+                h_p, inv_p = hold_pilots(label, x, p_rows)
                 exact_check("fft_mrc", label, [(pipe.fused_pipeline(d_rows, h_p, inv_p).to_numpy(),
                                                 pipe.fused_pipeline_plain(d_rows, h_p, inv_p)
                                                 .to_numpy())])
@@ -1652,12 +1696,6 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                     k = fused_mrc.fused_demod(d_rows, hc, hs).to_numpy()
                     exact_check("mrc_demod", label, [(
                         k[..., 1:], fused_mrc.fused_demod_plain(d_rows, hc, hs).to_numpy()[..., 1:])])
-                hb, ib = pipe.estimate_pilot_fused(p_rows, x, exact=False)
-                hbp, ibp = pipe.estimate_pilot_speed_plain(p_rows, x)
-                speed_check("pilot_ls_bf16", f"{label} h", hb.to_numpy(), hbp.to_numpy(),
-                            h_p.to_numpy())
-                speed_check("pilot_ls_bf16", f"{label} sum|h|^2", *(1 / v.cpu().numpy()
-                                                                    for v in (ib, ibp, inv_p)))
                 speed_check("fft_mrc_bf16", label, *(fn(d_rows, h_p, inv_p).to_numpy() for fn in (
                     lambda *a: pipe.fused_pipeline(*a, exact=False),
                     pipe.fused_pipeline_speed_plain, pipe.fused_pipeline_plain)))
@@ -1692,6 +1730,17 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
             hc, hs = rx.estimate_channel(frame[0])
             h_e, inv_e = hold(f"{ANTENNAS}x{f}x{SYMBOLS} f32 cp {cp}", rx.x_full, y[0], y[1:],
                               hc, hs)
+            # The pilots at 64 antennas (several rows a team, an uneven bf16
+            # cluster at 32768), f32 and the same rows as int16.
+            g64 = np.random.default_rng(f + WIDE_PILOT_ANTENNAS)
+            wide = CArray.from_numpy((0.1 * (g64.standard_normal((WIDE_PILOT_ANTENNAS, f)) + 1j
+                                             * g64.standard_normal((WIDE_PILOT_ANTENNAS, f))))
+                                     .astype(np.complex64), dev)
+            for label, rows in (("f32", wide), ("int16", CArray(*(
+                    torch.round(t * 32767).clamp(-32768, 32767).to(torch.int16)
+                    for t in (wide.re, wide.im))))):
+                hold_pilots(f"{WIDE_PILOT_ANTENNAS}x{f} {label} pilot", rx.x_full, rows)
+            del wide
             if f == 8192:  # the register FFT's element-by-element loads (an odd prefix)
                 small = CArray(*(torch.round(t[:6] * 32767).clamp(-32768, 32767)
                                  .to(torch.int16)[..., 1:1 + f] for t in (frame.re, frame.im)))
@@ -1834,6 +1883,16 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                       f"{us(timed(t, 'library')[0])}; bound {b_ms * 1e3:.2f} us ({b_by}) at the "
                       f"published peaks, {nbytes / io_floor * 1e6:.2f} us at the measured io "
                       f"floor ({nbytes / 1e6:.3f} MB)  [{card}]")
+                passes = {}
+                if name in LARGE_PILOT_PARENT_US:
+                    col = sum(v for k, v in t["kernel_split"].items() if "column_pass" in k)
+                    passes = {"column": col, "row": sum(t["kernel_split"].values()) - col}
+                    mine = pilot_ptxas(lines, name, f)
+                    print(f"pilot {name} F={f}: device {us(k_ms)} (column pass "
+                          f"{passes['column'] * 1e3:.2f} us, row pass {passes['row'] * 1e3:.2f} "
+                          f"us); parent form {LARGE_PILOT_PARENT_US[name][f]:.2f} us (PERF.md); "
+                          f"torch.fft.fft {us(timed(t, 'library')[0])}; bound "
+                          f"{b_ms * 1e3:.2f} us ({b_by}); {' | '.join(mine)}  [{card}]")
                 src, replaces = LARGE_KERNELS[name]
                 records.append({
                     "name": f"{name} F={f}", "route": "cuda",
@@ -1846,6 +1905,7 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                     "time_source": {"ms": k_src, "plain_ms": timed(t, "plain")[1],
                                     "library_ms": timed(t, "library")[1]},
                     "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {cp}, one frame",
+                    **({"pass_split_ms": passes} if passes else {}),
                     **({"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}
                        if f in pipe.SPLIT_FFT_SIZES or name.endswith("_bf16") else {})})
             del pilot_c, data_c

@@ -84,12 +84,15 @@
 // 1024, 182,352 B at 4096 (W, two tiles, h staging, X and 1/|X|^2).
 //
 // F = 8192 to 32768 (n1 = 64 to 256): the split form's column pass
-// (fft_split.cu) for stage 1 and speed_rows_kernel (near the end of this
-// file) for stage 2, one warpgroup a block, 82,944 B (W and one tile); ptxas
-// 255 registers, the data kernel without spills, the pilot 352 B spilled.
+// (fft_split.cu) for stage 1 and a row pass (near the end of this file) for
+// stage 2, one warpgroup a block, W and one tile: speed_rows_kernel for the
+// data path (82,944 B; ptxas 255 registers, no spills), pilot_rows_kernel
+// for the pilot, its antennas spread over a cluster that takes W by one TMA
+// multicast, two warpgroups a block (201,744 B: a tile and a row stage each,
+// X).
 //
-// What it leaves for later: W is copied by every block, not multicast to
-// the cluster by TMA; rows by cp.async, not TMA tensor copies; warpgroup 0
+// What it leaves for later: below F = 8192 W is copied by every block, not
+// multicast to the cluster by TMA; rows by cp.async, not TMA tensor copies; warpgroup 0
 // alone folds every chunk, and with two stage-1 warpgroups it is the
 // slower role (its fold, not the product, sets the pace); the pilot's
 // chain (W copy, one chunk, cluster reduce) is latency-bound.
@@ -828,17 +831,18 @@ __global__ void __launch_bounds__(kThreads<true>, 1) pilot_ls_bf16_kernel(const 
 // chunk layout above gives each thread v[32 / n1][n1]: no antenna at all past
 // n1 = 32).  Stage 1 is the split form's column pass (fft_split.cu: the
 // n1-point DFT in float32 and the twiddle, the sc16 scale folded into it, into
-// a scratch B[a][k1][i2]), and this kernel is the row pass: a block of one
-// warpgroup takes 32 bins k1 of one symbol (the pilot: frame), k1 = 32 g + q,
-// and for each antenna in turn reads B's 32 rows (a chunk of 32 complex rows,
-// r = a n1 + k1, as above), rounds them to bf16 into the tile and runs stage 2
-// as the same four wgmma quarters against W, the next antenna's rows loading
-// meanwhile.  Its sums over the antennas stay in the registers of the fold
-// (data: sum C conj(h), h read through L1 a quarter ahead; pilot: h =
-// C conj(X) / |X|^2 stored at once, sum |h|^2), so no cluster and no second
-// reduction.  What it leaves: one warpgroup does the loads, the bf16 pack,
-// the product and the fold in turn (two blocks an SM); the scratch costs a
-// write and a read of every sample (PERF.md).
+// a scratch B[a][k1][i2]), and the kernels below are the row pass: a block of
+// one warpgroup takes 32 bins k1 of one symbol (the pilot: frame), k1 = 32 g
+// + q, and for each of its antennas reads B's 32 rows (a chunk of 32 complex
+// rows, r = a n1 + k1, as above), rounds them to bf16 into the tile and runs
+// stage 2 as the same four wgmma quarters against W, the next antenna's rows
+// loading meanwhile.  Its sums over its antennas stay in the registers of the
+// fold.  The data path (speed_rows_kernel: sum C conj(h), h read through L1
+// a quarter ahead) takes every antenna in one block and needs no cluster;
+// what it leaves: one warpgroup does the loads, the bf16 pack, the product
+// and the fold in turn (two blocks an SM), and the scratch costs a write and
+// a read of every sample (PERF.md).  The pilot (pilot_rows_kernel) spreads
+// the antennas over a cluster (below).
 struct RowsParams {
   const float* b_re;       // the column pass's scratch [n, A, n1, 128]
   const float* b_im;
@@ -849,7 +853,7 @@ struct RowsParams {
   const float* inv;        // data: [K, F]
   const float* x_re;       // pilot: [F] padded pilot, natural order
   const float* x_im;
-  const uint4* w;          // [128, 256] bf16 [Wr | Wi]
+  const uint4* w;          // data: [128, 256] bf16 [Wr | Wi]; pilot: the operand's image
   float* out_re;           // data: [K, S, F-1]; pilot: h [K, A, F]
   float* out_im;
   float* inv_out;          // pilot: [K, F]
@@ -857,8 +861,70 @@ struct RowsParams {
 
 constexpr int kRowsK1 = kChunkRows;  // bins k1 of a block
 constexpr int kRowsBytes = kWBytes + kTileBytes + kAlign;
+constexpr int kWPiece = 4096;                       // bytes of one multicast copy of W
+constexpr int kNatStride = kChunkRows + 1;          // floats a bin k2 of the pilot's sums
+constexpr int kXsStride = kChunkRows + 4;           // floats a bin k2 of the pilot's X staging
+constexpr int kXsBytes = 2 * kN2 * kXsStride * 4;   // 36,864: X / |X|^2, two planes
+// The pilot's row pass: two warpgroups; W, a tile each, the X staging, a row
+// stage each (an antenna's 32 rows, f32), the barrier of W's multicast.
+constexpr int kPilotRowsThreads = 256;
+constexpr int kPilotRowsBytes = kRowsBytes + kTileBytes + kXsBytes + 2 * kRowBytes + 16;
 
-template <int N1, bool kPilot>
+// Stage 1's output for rows k1 = 32 g .. 32 g + 31 of one antenna, column t
+// (b points at row k1 = 32 g of antenna 0), into registers.
+template <int N1>
+__device__ __forceinline__ void load_rows(float (&br)[kChunkRows], float (&bi)[kChunkRows],
+                                          const float* __restrict__ b_re,
+                                          const float* __restrict__ b_im, int a, int t) {
+  const long long rows = static_cast<long long>(a) * N1 * kN2;
+#pragma unroll
+  for (int r = 0; r < kChunkRows; ++r) {
+    br[r] = b_re[rows + r * kN2 + t];
+    bi[r] = b_im[rows + r * kN2 + t];
+  }
+}
+
+// Stage 1's output for rows k1 = 32 g .. 32 g + 31 of one antenna (b as for
+// load_rows) into a row stage [plane][32][128] by 16-byte cp.async, issued
+// by the 128 threads of a warpgroup (t), not waited for.
+template <int N1>
+__device__ __forceinline__ void stage_rows(float* stage, const float* __restrict__ b_re,
+                                           const float* __restrict__ b_im, int a, int t) {
+  const long long rows = static_cast<long long>(a) * N1 * kN2;
+#pragma unroll
+  for (int i = t; i < 2 * kChunkRows * kN2 / 4; i += 128) {
+    const int plane = i / (kChunkRows * kN2 / 4), e = 4 * (i % (kChunkRows * kN2 / 4));
+    wfft::cp_async16(stage + plane * kChunkRows * kN2 + e, (plane ? b_im : b_re) + rows + e);
+  }
+}
+
+// A row stage's column t, rounded to bf16, into the tile.
+__device__ __forceinline__ void write_stage(const float* stage, unsigned char* tile, int t) {
+#pragma unroll
+  for (int r = 0; r < kChunkRows; ++r) {
+    const int m = tile_row(r);
+    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m, t)) =
+        __float2bfloat16_rn(stage[r * kN2 + t]);
+    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m + 8, t)) =
+        __float2bfloat16_rn(stage[(kChunkRows + r) * kN2 + t]);
+  }
+}
+
+// The rows in registers, rounded to bf16, into the tile (column t).
+__device__ __forceinline__ void write_rows(const float (&br)[kChunkRows],
+                                           const float (&bi)[kChunkRows], unsigned char* tile,
+                                           int t) {
+#pragma unroll
+  for (int r = 0; r < kChunkRows; ++r) {
+    const int m = tile_row(r);
+    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m, t)) =
+        __float2bfloat16_rn(br[r]);
+    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m + 8, t)) =
+        __float2bfloat16_rn(bi[r]);
+  }
+}
+
+template <int N1>
 __global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
   constexpr int F = N1 * kN2;
   extern __shared__ unsigned char smem_raw[];
@@ -871,7 +937,7 @@ __global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
   wfft::cp_async_commit();
   const long long il = blockIdx.y;
   const long long item = p.item0 + il;
-  const int k = static_cast<int>(kPilot ? item : item / p.S);
+  const int k = static_cast<int>(item / p.S);
   const int q = 8 * (t >> 5) + ((t & 31) >> 2);  // the thread's complex row of a chunk
   const int t4 = t & 3;
   const int k1 = kRowsK1 * blockIdx.x + q;
@@ -883,50 +949,28 @@ __global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
   float da[32], db[32];
   wfft::cp_async_wait<0>();
   fence_proxy_async();  // W, for the tensor cores (published by the first barrier below)
-  // Stage 1's output for rows k1 = 32 g .. 32 g + 31 of antenna a, column
-  // t: antenna a + 1's loads are in flight during antenna a's product and
-  // fold.
+  // Antenna a + 1's loads are in flight during antenna a's product and fold.
   float br[kChunkRows], bi[kChunkRows];
-  auto load_rows = [&](int a) {
-    const long long rows = static_cast<long long>(a) * F;
-#pragma unroll
-    for (int r = 0; r < kChunkRows; ++r) {
-      br[r] = b_re[rows + r * kN2 + t];
-      bi[r] = b_im[rows + r * kN2 + t];
-    }
-  };
-  load_rows(0);
+  load_rows<N1>(br, bi, b_re, b_im, 0, t);
   for (int a = 0; a < p.A; ++a) {
     __syncthreads();  // every thread's products of the last antenna are done
-#pragma unroll
-    for (int r = 0; r < kChunkRows; ++r) {
-      const int m = tile_row(r);
-      *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m, t)) =
-          __float2bfloat16_rn(br[r]);
-      *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m + 8, t)) =
-          __float2bfloat16_rn(bi[r]);
-    }
+    write_rows(br, bi, tile, t);
     fence_proxy_async();
     __syncthreads();  // the tile is written
     issue_quarter(da, tile_s, w_s, 0);
     issue_quarter(db, tile_s, w_s, 1);
-    if (a + 1 < p.A) load_rows(a + 1);
+    if (a + 1 < p.A) load_rows<N1>(br, bi, b_re, b_im, a + 1, t);
     const long long hrow = (static_cast<long long>(k) * p.A + a) * F;
 #pragma unroll
     for (int Q = 0; Q < kQuarters; ++Q) {
-      // The quarter's 8 bins of the thread: h (data) or X (pilot), loaded
-      // before the product is waited for.
+      // The quarter's 8 bins of the thread: h, loaded before the product is
+      // waited for.
       float pre[8][2];
 #pragma unroll
       for (int jc = 0; jc < 8; ++jc) {
         const int bin = N1 * (32 * Q + 8 * (jc >> 1) + 2 * t4 + (jc & 1)) + k1;
-        if constexpr (kPilot) {
-          pre[jc][0] = __ldg(p.x_re + bin);
-          pre[jc][1] = __ldg(p.x_im + bin);
-        } else {
-          pre[jc][0] = __ldg(p.h_re + hrow + bin);
-          pre[jc][1] = __ldg(p.h_im + hrow + bin);
-        }
+        pre[jc][0] = __ldg(p.h_re + hrow + bin);
+        pre[jc][1] = __ldg(p.h_im + hrow + bin);
       }
       if (Q < kQuarters - 1) {
         wg::wait<1>();
@@ -943,33 +987,19 @@ __global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
           const float cim = d[4 * (j + 4) + cc] + d[4 * j + 2 + cc];  // Br Wi + Bi Wr
           const int jc = 2 * j + cc;
           const int ix = 8 * Q + jc;
-          if constexpr (kPilot) {
-            const float xr = pre[jc][0], xi = pre[jc][1];
-            const float den = 1.0f / (xr * xr + xi * xi);
-            const float hr = (cre * xr + cim * xi) * den;
-            const float hi = (cim * xr - cre * xi) * den;
-            const int bin = N1 * (32 * Q + 8 * j + 2 * t4 + cc) + k1;
-            p.out_re[hrow + bin] = hr;
-            p.out_im[hrow + bin] = hi;
-            sums[ix][0] += hr * hr + hi * hi;
-          } else {
-            const float hr = pre[jc][0], hi = pre[jc][1];
-            sums[ix][0] += cre * hr + cim * hi;
-            sums[ix][1] += cim * hr - cre * hi;
-          }
+          const float hr = pre[jc][0], hi = pre[jc][1];
+          sums[ix][0] += cre * hr + cim * hi;
+          sums[ix][1] += cim * hr - cre * hi;
         }
       }
       if (Q + 2 < kQuarters) issue_quarter(d, tile_s, w_s, Q + 2);
     }
   }
-  // The block's bins: data eq = num * inv in reference order (the DC bin
-  // dropped), pilot inv = 1 / sum |h|^2.
+  // The block's bins: eq = num * inv in reference order (the DC bin dropped).
 #pragma unroll
   for (int ix = 0; ix < 32; ++ix) {
     const int bin = N1 * (32 * (ix >> 3) + 8 * ((ix >> 1) & 3) + 2 * t4 + (ix & 1)) + k1;
-    if constexpr (kPilot) {
-      p.inv_out[static_cast<long long>(k) * F + bin] = 1.0f / sums[ix][0];
-    } else if (bin != 0) {
+    if (bin != 0) {
       int jo = bin - F / 2;
       if (jo < 0) jo += F - 1;
       const float gain = __ldg(p.inv + static_cast<long long>(k) * F + bin);
@@ -980,17 +1010,229 @@ __global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
   }
 }
 
-// The column pass and this kernel over chunks of `chunk` symbols (the
-// pilot: frames), the scratch [2, chunk, A, F]; `tw` the split table
-// (ops/fft_plan.py split_tables, the sc16 scale in its four-step part).
-template <int N1, bool kPilot>
+// One TMA bulk copy of `bytes` into the same offset of the shared memory of
+// every block of `mask` in the cluster, completed on the barrier at the same
+// offset in each (the W multicast of pilot_rows_kernel).
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar, unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// The bf16 pilot's row pass: grid (n1 / 32 x CL, n), cluster (CL, 1, 1)
+// (ops/fft_plan.py speed_cluster: one block an antenna up to 8, fewer while
+// the launch would hold more blocks than SMs).  The cluster's blocks take
+// the same 32 bins k1 = 32 g + q of a frame; rank r takes antennas r, r +
+// CL, ..., and its two warpgroups take them in turn (warpgroup w antennas
+// r + CL w, r + CL (w + 2), ...), each on its own tile: one chunk of 32
+// complex rows an antenna through the four wgmma quarters and a fold that
+// forms h = C conj(X) / |X|^2, stores it at once and adds |h|^2 into the
+// thread's 32 sums; its rows come by cp.async into a row stage of its own,
+// the next antenna's during the product (rows held in registers instead
+// left too few for the accumulators, and ptxas serialized the products).
+// (One warpgroup a block left each scheduler one warp, and the fold's chain
+// of dependent instructions set the pace.)  W is copied once a cluster:
+// every block's elected thread expects 64 KB on its barrier and rank r
+// issues the pieces r, r + CL, ... of W's shared-memory image
+// (ops/fft_plan.py speed_w_image), each a TMA multicast into every block of
+// the cluster, after one cluster barrier that makes every peer's barrier
+// initialised.  X of the cluster's 32 x 128 bins is staged in shared memory
+// by cp.async (bin (k2, q) at k2 (32 + 4) + q, the fold's reads free of bank
+// conflicts) and scaled to X / |X|^2 in place while the first products run,
+// so no fold waits on a global load.  The warpgroups' sums then go to shared
+// memory (entry (k2, q) at k2 (32 + 1) + q, in the region of the block's W,
+// free once its last product is done; warpgroup 0's, then warpgroup 1's
+// added), and after a cluster barrier rank r adds its share of the
+// cluster's 32 x 128 bins (entry i = (k2 = i / 32, q = i % 32); fft_plan.py
+// speed_pilot_rank_bins) over the CL blocks through distributed shared
+// memory and writes 1 / sum; a last cluster barrier keeps each block
+// resident until its peers have read it.
+template <int N1>
+__global__ void __launch_bounds__(kPilotRowsThreads, 1) pilot_rows_kernel(const RowsParams p) {
+  constexpr int F = N1 * kN2;
+  constexpr int kBins = kRowsK1 * kN2;  // bins of a cluster
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
+  const int t = threadIdx.x;
+  const int wgi = t >> 7;  // the warpgroup
+  const int u = t & 127;   // its thread
+  unsigned char* const tile = smem + kWBytes + wgi * kTileBytes;
+  float* const xs_re = reinterpret_cast<float*>(smem + kWBytes + 2 * kTileBytes);
+  float* const xs_im = xs_re + kN2 * kXsStride;
+  uint64_t* const w_in = reinterpret_cast<uint64_t*>(smem + kWBytes + 2 * kTileBytes + kXsBytes +
+                                                     2 * kRowBytes);
+  const unsigned w_s = smem_u32(smem), tile_s = smem_u32(tile);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int grp = static_cast<int>(blockIdx.x) / CL;
+  const long long il = blockIdx.y;
+  const long long k = p.item0 + il;
+  const int q = 8 * (u >> 5) + ((u & 31) >> 2);  // the thread's complex row of a chunk
+  const int t4 = u & 3;
+  const int k1 = kRowsK1 * grp + q;
+  const float* const b_re = p.b_re + (il * p.A * N1 + kRowsK1 * grp) * kN2;
+  const float* const b_im = p.b_im + (il * p.A * N1 + kRowsK1 * grp) * kN2;
+  if (t == 0) {
+    mbar_init(w_in, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Rounds of the block, the same for both warpgroups (no product sits in a
+  // branch on the warpgroup, so the compiler keeps them asynchronous): round
+  // i takes antenna rank + CL (2 i + w) of warpgroup w, where there is one.
+  const int rounds = ((p.A - rank + CL - 1) / CL + 1) / 2;
+  const int step = 2 * CL;
+  int a = rank + CL * wgi;  // the warpgroup's antenna
+  float* const stage = reinterpret_cast<float*>(smem + kWBytes + 2 * kTileBytes + kXsBytes +
+                                                wgi * kRowBytes);
+  stage_rows<N1>(stage, b_re, b_im, a < p.A ? a : rank, u);
+  wfft::cp_async_commit();
+  // X, entry (k2, q) = bin n1 k2 + 32 g + q, by 16-byte cp.async (four bins
+  // of one plane a piece, 8 pieces a thread), behind the first rows.
+#pragma unroll
+  for (int i = t; i < 2 * kN2 * (kRowsK1 / 4); i += kPilotRowsThreads) {
+    const int plane = i / (kN2 * kRowsK1 / 4), k2 = (i / (kRowsK1 / 4)) % kN2;
+    const int c = 4 * (i % (kRowsK1 / 4));
+    wfft::cp_async16((plane ? xs_im : xs_re) + k2 * kXsStride + c,
+                     (plane ? p.x_im : p.x_re) + N1 * k2 + kRowsK1 * grp + c);
+  }
+  wfft::cp_async_commit();
+  // Relaxed: the barrier's initialisation is released by its own fence, and
+  // a release here would wait for the copies above.
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+  cluster_wait();  // every block's barrier is initialised
+  if (t == 0) {
+    mbar_arrive_expect_tx(w_in, kWBytes);
+    const unsigned short all = static_cast<unsigned short>((1u << CL) - 1u);
+    for (int i = rank; i < kWBytes / kWPiece; i += CL) {
+      bulk_copy_multicast(smem + i * kWPiece, reinterpret_cast<const unsigned char*>(p.w) +
+                          i * kWPiece, kWPiece, w_in, all);
+    }
+  }
+  float sums[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sums[i] = 0.0f;
+  float da[32], db[32];
+  // Antenna a's tile from the row stage and its first two quarters (past A:
+  // the last rows again, the product unused), then the warpgroup's next
+  // antenna's rows into the stage, in flight during a's product and fold.
+  auto begin = [&](bool first) {
+    if (first) {
+      wfft::cp_async_wait<1>();  // the first rows; X may still be in flight
+    } else {
+      wfft::cp_async_wait<0>();
+    }
+    wg_sync(wgi);  // the stage has landed for the warpgroup
+    write_stage(stage, tile, u);
+    fence_proxy_async();
+    wg_sync(wgi);  // the warpgroup's tile is written and its stage read
+    issue_quarter(da, tile_s, w_s, 0);
+    issue_quarter(db, tile_s, w_s, 1);
+    if (a + step < p.A) stage_rows<N1>(stage, b_re, b_im, a + step, u);
+    wfft::cp_async_commit();
+  };
+  mbar_wait(w_in, 0);  // W has landed (written by the async proxy, read by it)
+  begin(true);
+  wfft::cp_async_wait<0>();
+  __syncthreads();  // every piece of X has landed
+  for (int i = t; i < kBins; i += kPilotRowsThreads) {  // X / |X|^2, an entry a thread
+    const int at = (i >> 5) * kXsStride + (i & 31);
+    const float xr = xs_re[at], xi = xs_im[at];
+    const float den = __frcp_rn(xr * xr + xi * xi);  // as 1.0f / |X|^2
+    xs_re[at] = xr * den;
+    xs_im[at] = xi * den;
+  }
+  __syncthreads();  // X / |X|^2 is published
+  for (int i = 0; i < rounds; ++i) {
+    const bool live = a < p.A;
+    const long long hrow = (k * p.A + a) * F;
+#pragma unroll
+    for (int Q = 0; Q < kQuarters; ++Q) {
+      if (Q < kQuarters - 1) {
+        wg::wait<1>();
+      } else {
+        wg::wait<0>();
+      }
+      float(&d)[32] = (Q & 1) ? db : da;
+      wg::fence_operands(d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float cre = d[4 * j + cc] - d[4 * (j + 4) + 2 + cc];  // Br Wr - Bi Wi
+          const float cim = d[4 * (j + 4) + cc] + d[4 * j + 2 + cc];  // Br Wi + Bi Wr
+          const int k2 = 32 * Q + 8 * j + 2 * t4 + cc;
+          const float xr = xs_re[k2 * kXsStride + q], xi = xs_im[k2 * kXsStride + q];
+          const float hr = cre * xr + cim * xi;
+          const float hi = cim * xr - cre * xi;
+          if (live) {
+            p.out_re[hrow + N1 * k2 + k1] = hr;
+            p.out_im[hrow + N1 * k2 + k1] = hi;
+            sums[8 * Q + 2 * j + cc] += hr * hr + hi * hi;
+          }
+        }
+      }
+      if (Q + 2 < kQuarters) issue_quarter(d, tile_s, w_s, Q + 2);
+    }
+    a += step;
+    if (i + 1 < rounds) {
+      wg_sync(wgi);  // every thread of the warpgroup is past its products: the tile is free
+      begin(false);
+    }
+  }
+  // The block's sums, entry (k2, q) at k2 kNatStride + q of W's region:
+  // warpgroup 0's, then warpgroup 1's added (the same entries, thread by
+  // thread).
+  __syncthreads();  // every product of the block is done: W is free
+  float* const nat = reinterpret_cast<float*>(smem);
+  for (int w = 0; w < 2; ++w) {
+    if (wgi == w) {
+#pragma unroll
+      for (int ix = 0; ix < 32; ++ix) {
+        const int k2 = 32 * (ix >> 3) + 8 * ((ix >> 1) & 3) + 2 * t4 + (ix & 1);
+        nat[k2 * kNatStride + q] = w ? nat[k2 * kNatStride + q] + sums[ix] : sums[ix];
+      }
+    }
+    __syncthreads();
+  }
+  cluster_arrive();
+  cluster_wait();  // every block's sums are written and visible to the cluster
+  // Rank r: entries [r kBins / CL, (r + 1) kBins / CL); 32 consecutive
+  // entries are 32 consecutive bins.
+  const int lo = rank * kBins / CL, hi = (rank + 1) * kBins / CL;
+  float* const inv_k = p.inv_out + k * F;
+#pragma unroll 4
+  for (int i = lo + t; i < hi; i += kPilotRowsThreads) {
+    const int at = (i >> 5) * kNatStride + (i & 31);
+    float part[kPilotCluster];
+#pragma unroll
+    for (int c = 0; c < kPilotCluster; ++c) {
+      part[c] = c < CL ? cluster.map_shared_rank(nat, c)[at] : 0.0f;
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPilotCluster; ++c) s += part[c];
+    inv_k[N1 * (i >> 5) + kRowsK1 * grp + (i & 31)] = 1.0f / s;
+  }
+  cluster_arrive();
+  cluster_wait();  // no block leaves while a peer still reads its sums
+}
+
+// The column pass and speed_rows_kernel over chunks of `chunk` symbols, the
+// scratch [2, chunk, A, F]; `tw` the split table (ops/fft_plan.py
+// split_tables, the sc16 scale in its four-step part).
+template <int N1>
 cudaError_t launch_rows(bool int16, const Params& p, const float* tw, float* scratch,
                         int chunk, cudaStream_t stream) {
-  auto kernel = speed_rows_kernel<N1, kPilot>;
+  auto kernel = speed_rows_kernel<N1>;
   cudaError_t err = allow_smem(kernel, kRowsBytes);
   if (err != cudaSuccess) return err;
-  RowsParams r = {nullptr, nullptr, 0, p.S, p.A, p.h_re, p.h_im, p.inv, p.x_re,
-                  p.x_im, p.w, p.out_re, p.out_im, p.inv_out};
+  RowsParams r = {nullptr, nullptr, 0, p.S, p.A, p.h_re, p.h_im, p.inv, nullptr,
+                  nullptr, p.w, p.out_re, p.out_im, nullptr};
   return split::run_split<N1>(
       int16, p.y_re, p.y_im, p.stride_k, p.stride_s, p.stride_a, p.S, p.A,
       static_cast<long long>(p.K) * p.S, tw, scratch, chunk, stream,
@@ -1000,6 +1242,43 @@ cudaError_t launch_rows(bool int16, const Params& p, const float* tw, float* scr
         r.item0 = i0;
         kernel<<<dim3(N1 / kRowsK1, n), 128, kRowsBytes, stream>>>(r);
         return cudaGetLastError();
+      });
+}
+
+// The column pass and pilot_rows_kernel over chunks of `chunk` frames: a
+// cluster of `cl` blocks for each 32 bins k1 of a frame (ops/fft_plan.py
+// speed_cluster: one block an antenna up to kPilotCluster, fewer with K
+// frames); p.w is W's shared-memory image.
+template <int N1>
+cudaError_t launch_pilot_rows(bool int16, const Params& p, int cl, const float* tw,
+                              float* scratch, int chunk, cudaStream_t stream) {
+  if (cl < 1 || cl > kPilotCluster || cl > p.A) return cudaErrorInvalidValue;
+  auto kernel = pilot_rows_kernel<N1>;
+  cudaError_t err = allow_smem(kernel, kPilotRowsBytes);
+  if (err != cudaSuccess) return err;
+  constexpr int kGroups = N1 / kRowsK1;
+  RowsParams r = {nullptr, nullptr, 0, 1, p.A, nullptr, nullptr, nullptr, p.x_re,
+                  p.x_im, p.w, p.out_re, p.out_im, p.inv_out};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kPilotRowsThreads);
+  cfg.dynamicSmemBytes = kPilotRowsBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return split::run_split<N1>(
+      int16, p.y_re, p.y_im, p.stride_k, p.stride_s, p.stride_a, 1, p.A, p.K, tw, scratch,
+      chunk, stream, [&](const float* b_re, const float* b_im, long long i0, int n) {
+        r.b_re = b_re;
+        r.b_im = b_im;
+        r.item0 = i0;
+        cfg.gridDim = dim3(kGroups * cl, n);
+        cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, r);
+        return e != cudaSuccess ? e : cudaGetLastError();
       });
 }
 
@@ -1055,20 +1334,20 @@ inline int n1_of(int F) {
 }
 
 template <typename T>
-cudaError_t dispatch(int F, bool pilot, const Params& p, const float* split_tw, float* scratch,
-                     int chunk, cudaStream_t st) {
+cudaError_t dispatch(int F, bool pilot, const Params& p, int rows_cluster, const float* split_tw,
+                     float* scratch, int chunk, cudaStream_t st) {
   const long long items = static_cast<long long>(p.K) * p.S;
   constexpr bool int16 = sizeof(T) == 2;
   switch (F) {
     case 8192:
-      return pilot ? launch_rows<64, true>(int16, p, split_tw, scratch, chunk, st)
-                   : launch_rows<64, false>(int16, p, split_tw, scratch, chunk, st);
+      return pilot ? launch_pilot_rows<64>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
+                   : launch_rows<64>(int16, p, split_tw, scratch, chunk, st);
     case 16384:
-      return pilot ? launch_rows<128, true>(int16, p, split_tw, scratch, chunk, st)
-                   : launch_rows<128, false>(int16, p, split_tw, scratch, chunk, st);
+      return pilot ? launch_pilot_rows<128>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
+                   : launch_rows<128>(int16, p, split_tw, scratch, chunk, st);
     case 32768:
-      return pilot ? launch_rows<256, true>(int16, p, split_tw, scratch, chunk, st)
-                   : launch_rows<256, false>(int16, p, split_tw, scratch, chunk, st);
+      return pilot ? launch_pilot_rows<256>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
+                   : launch_rows<256>(int16, p, split_tw, scratch, chunk, st);
     default:
       break;
   }
@@ -1120,26 +1399,35 @@ extern "C" int ofdm_fft_mrc_bf16(const void* y_re, const void* y_im, int in_int1
                            static_cast<const uint4*>(w), out_re, out_im, nullptr, align};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, tw, scratch, chunk, st)
-               : ofdm::speed::dispatch<float>(F, false, p, tw, scratch, chunk, st));
+      in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, 0, tw, scratch, chunk, st)
+               : ofdm::speed::dispatch<float>(F, false, p, 0, tw, scratch, chunk, st));
 }
 
 // Pilot rows: p_re/p_im at row (k=0, a=0) of K x A rows, row (k, a) at
 // element k*stride_k + a*stride_a, int16 or float32.  x_re/x_im: [F]
-// padded pilot, natural order, 16-byte aligned.  tw, w, scratch, chunk as
-// for ofdm_fft_mrc_bf16 (the chunk in frames).  Outputs h_re/h_im
-// [K, A, F] and inv [K, F] = 1/sum_a |h|^2, natural order.
+// padded pilot, natural order, 16-byte aligned.  tw, scratch, chunk as for
+// ofdm_fft_mrc_bf16 (the chunk in frames).  Below F = 8192: w as there,
+// w_image null and clusters 0.  From F = 8192: w null, w_image W's
+// shared-memory image (ops/fft_plan.py speed_w_image, 64 KB, 16-byte
+// aligned) and clusters the row pass's cluster (ops/fft_plan.py
+// speed_cluster, 1 to min(A, 8)).  Outputs h_re/h_im [K, A, F] and inv
+// [K, F] = 1/sum_a |h|^2, natural order.
 extern "C" int ofdm_pilot_ls_bf16(const void* p_re, const void* p_im, int in_int16,
                                   long long stride_k, long long stride_a, int K, int A, int F,
                                   const float* x_re, const float* x_im, const float* tw,
-                                  const void* w, float* h_re, float* h_im, float* inv,
-                                  float* scratch, int chunk, void* stream) {
-  if (K < 1 || A < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* w, const void* w_image, int clusters,
+                                  float* h_re, float* h_im, float* inv, float* scratch,
+                                  int chunk, void* stream) {
+  const bool split = F == 8192 || F == 16384 || F == 32768;
+  if (K < 1 || A < 1 || (split ? w != nullptr || w_image == nullptr
+                               : w == nullptr || w_image != nullptr || clusters != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ofdm::speed::Params p = {p_re, p_im, stride_k, 0, stride_a, K, 1, A, nullptr, nullptr,
                            nullptr, x_re, x_im, reinterpret_cast<const float2*>(tw),
-                           static_cast<const uint4*>(w), h_re, h_im, inv, 2};
+                           static_cast<const uint4*>(split ? w_image : w), h_re, h_im, inv, 2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_int16 ? ofdm::speed::dispatch<int16_t>(F, true, p, tw, scratch, chunk, st)
-               : ofdm::speed::dispatch<float>(F, true, p, tw, scratch, chunk, st));
+      in_int16 ? ofdm::speed::dispatch<int16_t>(F, true, p, clusters, tw, scratch, chunk, st)
+               : ofdm::speed::dispatch<float>(F, true, p, clusters, tw, scratch, chunk, st));
 }

@@ -7,7 +7,7 @@
 //
 // Grid (128 / C, n A): a block of 256 threads takes C consecutive columns
 // of one antenna row, C = 256 / T (the n1-point register FFT's team of T
-// lanes, one a column: 32 columns at n1 = 64 and 128, 16 at 256), three
+// lanes, one a column: 32 columns at n1 = 64 and 128, 16 at 256), two
 // blocks an SM.  It loads its [n1][C] samples as n1 runs of C consecutive
 // samples (coalesced; float32 by 4-byte cp.async into place, int16 through
 // registers, widened exactly), transposes them into one buffer a column
@@ -20,6 +20,16 @@
 // Bound: bytes.  A 16 x 32768 f32 symbol reads 4.2 MB and writes 4.2 MB of
 // scratch; 5 n1 log2 n1 + 6 FLOP a column sample is far under the fp32
 // rate.  ptxas: see chip_smoke.py phase 15.
+//
+// The twiddle of bin k1 = j + T m is formed from three entries of the table,
+// loaded with the samples: k1 = j, and the step of k1 = T over the k1 = 0
+// entry (which carries the sc16 scale of the speed kernels' table), by
+// products in float32 (a few ulp from the table at m = M - 1), in place of
+// loading all M entries a lane; with two blocks an SM in place of three,
+// nothing spills (three spilled 48-60 B at n1 = 128 and 256).  On the H100
+// this made the data kernels' column pass 13-29% faster and kept the
+// pilots' (64 or 128 blocks, one block's chain) as fast as a form of their
+// own (PERF.md).
 
 #include <cstdint>
 
@@ -28,7 +38,7 @@
 namespace ofdm {
 namespace split {
 
-constexpr int kColumnBlocks = 3;  // blocks an SM should hold (__launch_bounds__)
+constexpr int kColumnBlocks = 2;  // blocks an SM should hold (__launch_bounds__)
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -74,6 +84,17 @@ column_pass_kernel(const E* __restrict__ y_re, const E* __restrict__ y_im,
   const long long off = (item / S) * stride_k + (item % S) * stride_s + a * stride_a;
   const E* const xr = y_re + off;
   const E* const xi = y_im + off;
+  const float2* const four = tw + four_tw_offset<N1>();
+  const int i2 = c0 + team.id;
+  if (threadIdx.x < G::kTwiddles * 8 / 128) {  // the FFT's pass twiddles into L1
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(tw + 16 * threadIdx.x));
+  }
+  float2 fw[3];  // the twiddle entries k1 = j, T and 0, loaded behind the samples
+  auto load_twiddles = [&]() {
+    fw[0] = __ldg(four + team.j * kN2 + i2);
+    fw[1] = __ldg(four + T * kN2 + i2);
+    fw[2] = __ldg(four + i2);
+  };
 
   // [n1][C] in, as runs of C samples; column c's i1 into its buffer: float
   // rows by 4-byte cp.async straight into place (no registers held), int16
@@ -90,6 +111,7 @@ column_pass_kernel(const E* __restrict__ y_re, const E* __restrict__ y_im,
                    "l"(xi + at) : "memory");
     }
     wfft::cp_async_commit();
+    load_twiddles();
     wfft::cp_async_wait<0>();
   } else {
     float lr[kLoads], li[kLoads];
@@ -100,6 +122,7 @@ column_pass_kernel(const E* __restrict__ y_re, const E* __restrict__ y_im,
       lr[u] = wfft::widen(xr[at]);
       li[u] = wfft::widen(xi[at]);
     }
+    load_twiddles();
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int idx = threadIdx.x + u * kColumnThreads;
@@ -113,13 +136,15 @@ column_pass_kernel(const E* __restrict__ y_re, const E* __restrict__ y_im,
   float* const buf = smem + team.id * kStride;
   float2 v[M];
   wfft::row_fft<N1, float>(v, buf, tw, team);
-  const float2* const four = tw + four_tw_offset<N1>();
-  const int i2 = c0 + team.id;
   team.sync();  // every lane has read the column's exchange buffer
+  const float s0 = 1.0f / fw[2].x;  // the k1 = 0 entry is real: 1, or the sc16 scale
+  const float2 step = make_float2(fw[1].x * s0, fw[1].y * s0);
+  float2 w = fw[0];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const int k1 = team.j + T * m;
-    const float2 b = cmul(v[m], __ldg(four + k1 * kN2 + i2));
+    const float2 b = cmul(v[m], w);
+    w = cmul(w, step);
     buf[k1] = b.x;
     buf[G::kPlane + k1] = b.y;
   }

@@ -19,10 +19,13 @@
 //      128-point DFT of every B[k1][:] -- the register FFT at F = 128, one
 //      8-lane team a row, rows staged by cp.async one ahead as in
 //      fft_warp.cuh team_rows -- gives bin k1 + n1 k2 in register k2 / 8 of
-//      lane k2 % 8.  A block takes kK1 = 8 bins k1 of one symbol and all of
-//      its antennas over up to kMaxTeams = 4 antenna teams, so the sums over
-//      the antennas (the MRC numerator, the pilot's sum |h|^2) stay inside
-//      the block: no cluster, no second reduction.  Warp w holds the teams
+//      lane k2 % 8.  A data block takes kK1 = 8 bins k1 of one symbol and
+//      all of its antennas over up to kMaxTeams = 4 antenna teams, so the
+//      MRC numerator's sum over the antennas stays inside the block: no
+//      cluster, no second reduction.  The pilot (one frame, n1 / 8 such
+//      blocks) spreads its antennas over a thread block cluster of up to 8
+//      blocks and adds sum |h|^2 in distributed shared memory
+//      (pilot_ls.cu pilot_ls_rows_kernel).  Warp w holds the teams
 //      of four consecutive k1 (g = (id & 3) + 4 (w & 1)) of antenna team
 //      p = w / 2, so a warp's estimate reads take 16 bytes of each of eight
 //      32-byte sectors and its neighbour warp the other 16.

@@ -47,10 +47,12 @@
 // separate sum, so the block fits: 200,704 B); 162-198 registers, no spills;
 // a 16 x 8192 pilot is a cluster of 8 blocks of 2 rows, ~13 us on an H100.
 // F = 16384 and 32768: the split form (fft_split.cuh): the column pass, then
-// pilot_ls_rows_kernel below, 8 bins k1 of one frame a block over every
-// antenna: h stored as it is formed, sum |h|^2 and inv written by the block
-// itself, no cluster (pilot_plan gives clusters 1); 176 registers, no
-// spills, 70,656 B; a 16 x 32768 pilot ~25 us on an H100.
+// pilot_ls_rows_kernel below, a cluster of up to 8 blocks for each 8 bins
+// k1 of a frame, the antennas spread over its blocks (16 x 16384: 16
+// clusters of 8 blocks of two one-row antenna teams; 16 x 32768: 32 of 2
+// blocks of four two-row teams, so that the card holds every block at
+// once), h stored as it is formed, sum |h|^2 added over the cluster in
+// distributed shared memory as above; ptxas 176-179 registers, no spills.
 // Loops whose trip count depends on the launch are bounded by constants
 // (kMaxTeams, kMaxCluster) so that their loads issue together; the pass
 // twiddles are read through L1.
@@ -194,6 +196,22 @@ pilot_ls_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
   cluster.sync();  // no block leaves while a peer still reads its bsum
 }
 
+// Dynamic shared memory of a split pilot block of `teams` antenna teams: the
+// row pass's buffers, then X of its kK1 x 128 bins (ops/fft_plan.py
+// pilot_smem_bytes).
+inline size_t split_pilot_smem_bytes(int teams) {
+  return split::row_smem_bytes(teams) + 2 * split::kK1 * split::kN2 * sizeof(float);
+}
+
+// A pilot plan the kernels can launch (ops/fft_plan.py pilot_plan): a
+// portable cluster, at most `max_teams` teams, the rows each team needs,
+// no team slot idle for a whole row, and a row for every block.
+inline bool pilot_plan_ok(int A, int clusters, int teams, int rows, int max_teams) {
+  return clusters >= 1 && clusters <= kMaxCluster && teams >= 1 && teams <= max_teams &&
+         rows == (A + clusters * teams - 1) / (clusters * teams) &&
+         teams == (A + clusters * rows - 1) / (clusters * rows) && (clusters - 1) * teams < A;
+}
+
 template <int F, typename T, bool kAligned>
 cudaError_t launch_pilot(const void* y_re, const void* y_im, long long stride_k,
                          long long stride_a, float scale, int K, int A, int clusters,
@@ -202,9 +220,8 @@ cudaError_t launch_pilot(const void* y_re, const void* y_im, long long stride_k,
                          float* inv, int invert, cudaStream_t stream) {
   using G_ = wfft::Geo<F>;
   const int threads = teams * G_::T;
-  if (K < 1 || K > 65535 || A < 1 || clusters < 1 || clusters > kMaxCluster ||
-      teams < 1 || threads > pilot_max_threads<F>() ||
-      rows != (A + clusters * teams - 1) / (clusters * teams) ||
+  if (K < 1 || K > 65535 || A < 1 ||
+      !pilot_plan_ok(A, clusters, teams, rows, pilot_max_threads<F>() / G_::T) ||
       smem != static_cast<long long>(pilot_smem_bytes<F>(teams))) {
     return cudaErrorInvalidValue;
   }
@@ -259,11 +276,26 @@ cudaError_t dispatch_pilot(int F, const void* y_re, const void* y_im,
 }
 
 // F = 16384 and 32768 (fft_split.cuh): the row pass of frames [item0,
-// item0 + gridDim.y) of the scratch b [n, A, n1, 128].  Each bin of each
-// antenna gives h = Y conj(X) scale / |X|^2, stored at once (natural order),
-// and the block, which holds every antenna of its kK1 bins k1, sums |h|^2
-// over them and writes inv (or the sum) itself: no cluster.  The plan
-// (ops/fft_plan.py pilot_plan) is clusters 1, `teams` antenna teams.
+// item0 + gridDim.y) of the scratch b [n, A, n1, 128], a thread block
+// cluster of C blocks for each kK1 bins k1 of a frame: grid (n1 / kK1 x C,
+// n), cluster (C, 1, 1).  Block rank r holds `teams` antenna teams of kK1
+// 8-lane row teams; antenna team p takes rows g, g + C teams, ... (g =
+// r teams + p, as the register plan's teams), so the cluster takes every
+// antenna once.  X of the block's kK1 x 128 bins lands in shared memory by
+// 16-byte cp.async ahead of the first rows (kK1 consecutive bins a k2), and
+// a lane takes X and scale / |X|^2 of its 16 bins k1 + n1 (j + 8 m) from
+// there into registers (each lane loading its own from device memory took
+// 32 scattered loads a lane); each row (staged one ahead by cp.async) goes
+// through the 128-point register FFT and each bin gives h =
+// Y conj(X) scale / |X|^2, stored at once (natural order), and |h|^2 into
+// the lane's sums (the last row's h is stored after the cluster barrier's
+// arrive).  Each team's sums stay in its first buffer; after the cluster
+// barrier rank r adds its share of the cluster's kK1 x 128 bins (entry i =
+// (k2 = i / kK1, k1 = i % kK1); fft_plan.py split_pilot_rank_bins) over the
+// C blocks' teams in their shared memory (distributed shared memory) and
+// writes inv (or the sum); a second cluster.sync() keeps every block
+// resident until its peers have read it.  The plan
+// (ops/fft_plan.py pilot_plan) is checked by pilot_plan_ok.
 template <int N1>
 __global__ void __launch_bounds__(split::kRowThreads)
 pilot_ls_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
@@ -271,62 +303,167 @@ pilot_ls_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b
                      const float* __restrict__ x_im, const float2* __restrict__ tw,
                      float* __restrict__ h_re, float* __restrict__ h_im,
                      float* __restrict__ inv, int invert) {
-  constexpr int F = N1 * split::kN2;
+  using RG = split::RowGeo;
+  constexpr int F = N1 * split::kN2, M = RG::M, L = split::kRowLanes;
+  constexpr int kBins = split::kK1 * split::kN2;  // bins of a cluster
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int P = static_cast<int>(blockDim.x) / (split::kK1 * L);
+  const split::RowTeam rt;
+  const int j = rt.team.j;
+  const int k1_0 = static_cast<int>(blockIdx.x) / C * split::kK1;
+  const int k1 = k1_0 + rt.g;
   const long long il = blockIdx.y;
   const long long k = item0 + il;
-  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
-  const int k1_0 = blockIdx.x * split::kK1;
-  auto fold = [&](int a, int k1, int k2, float2 y, float& acc, float&) {
-    const int bin = k1 + N1 * k2;
-    const float xr = __ldg(x_re + bin), xi = __ldg(x_im + bin);
-    const float den = __fdividef(scale, xr * xr + xi * xi);
-    const float hr = (y.x * xr + y.y * xi) * den;
-    const float hi = (y.y * xr - y.x * xi) * den;
-    const long long at = (k * A + a) * F + bin;
-    h_re[at] = hr;
-    h_im[at] = hi;
-    acc += hr * hr + hi * hi;
-  };
-  const long long rows = il * A * F;
-  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
-  __syncthreads();
-  float* const inv_k = inv + k * F;
-  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
-    const int g = i % split::kK1, k2 = i / split::kK1;
-    const float s = split::row_sum(smem, P, g, k2).x;
-    inv_k[k1_0 + g + N1 * k2] = invert ? 1.0f / s : s;
+  // This antenna team's rows: g, g + step, ... < A.
+  const int g = rank * P + rt.p;
+  const int step = C * P;
+  const int n = g < A ? (A - g + step - 1) / step : 0;
+  const float* const yr = b_re + il * A * F;
+  const float* const yi = b_im + il * A * F;
+  auto row = [&](int a) { return (static_cast<long long>(a) * N1 + k1) * split::kN2; };
+  float* const buf0 = smem + rt.team.id * RG::kTeamFloats;
+  float* const buf1 = buf0 + 2 * RG::kPlane;
+  float* const xs = smem + P * split::kK1 * RG::kTeamFloats;  // X: [2][128][kK1]
+  if (threadIdx.x < RG::kTwiddles * 8 / 128) {  // the row FFT's twiddles into L1, a line a thread
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(tw + 16 * threadIdx.x));
   }
-}
 
-// The split pilot's plan: clusters 1, up to kMaxTeams teams with no team
-// slot idle per row (ops/fft_plan.py pilot_plan), its row-pass shared memory.
-inline bool split_pilot_plan_ok(int A, int clusters, int teams, int rows, long long smem) {
-  const int t0 = split::data_teams(A);
-  const int r = (A + t0 - 1) / t0;
-  return clusters == 1 && rows == r && teams == (A + r - 1) / r &&
-         smem == static_cast<long long>(split::row_smem_bytes(teams));
+  for (int c = threadIdx.x; c < 2 * split::kN2 * (split::kK1 / 4); c += blockDim.x) {
+    const int plane = c / (split::kN2 * split::kK1 / 4), k2 = (c / (split::kK1 / 4)) % split::kN2;
+    const int e = 4 * (c % (split::kK1 / 4));
+    wfft::cp_async16(xs + plane * kBins + k2 * split::kK1 + e,
+                     (plane ? x_im : x_re) + k1_0 + N1 * k2 + e);
+  }
+  wfft::cp_async_commit();
+  if (n > 0) wfft::stage_row<split::kN2, float, true>(buf0, yr + row(g), yi + row(g), j);
+  wfft::cp_async_commit();
+  wfft::cp_async_wait<1>();  // X has landed (row 0 may not have)
+  __syncthreads();           // ... for every thread
+  float xr[M], xi[M], den[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    xr[m] = xs[(j + L * m) * split::kK1 + rt.g];
+    xi[m] = xs[kBins + (j + L * m) * split::kK1 + rt.g];
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    // scale / |X|^2 by the fast reciprocal (2 ulp), as the register plan.
+    den[m] = __fdividef(scale, xr[m] * xr[m] + xi[m] * xi[m]);
+  }
+  float acc[M];
+  float last_re[M], last_im[M];  // the last row's h, stored after the cluster arrive
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      const long long at = row(g + (i + 1) * step);
+      wfft::stage_row<split::kN2, float, true>((i & 1) ? buf0 : buf1, yr + at, yi + at, j);
+      wfft::cp_async_commit();
+      wfft::cp_async_wait<1>();
+    } else {
+      wfft::cp_async_wait<0>();
+    }
+    rt.team.sync();  // row i has landed for every lane of the team
+    float2 v[M];
+    wfft::row_fft<split::kN2, float>(v, (i & 1) ? buf1 : buf0, tw, rt.team);
+    const long long at = (k * A + g + i * step) * F + k1;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float hr = (v[m].x * xr[m] + v[m].y * xi[m]) * den[m];
+      const float hi = (v[m].y * xr[m] - v[m].x * xi[m]) * den[m];
+      if (i + 1 < n) {
+        h_re[at + N1 * (j + L * m)] = hr;
+        h_im[at + N1 * (j + L * m)] = hi;
+      } else {
+        last_re[m] = hr;
+        last_im[m] = hi;
+      }
+      acc[m] += hr * hr + hi * hi;
+    }
+    rt.team.sync();  // row i's buffer is free for row i + 2
+  }
+
+  // The team's sums into its first buffer.
+#pragma unroll
+  for (int m = 0; m < M; ++m) buf0[j + L * m] = acc[m];
+  // The arrive releases the teams' sums; the last row's h is stored after
+  // it (a release waits for the stores before it to land), in flight during
+  // the wait and the reduce.
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+  if (n > 0) {
+    const long long at = (k * A + g + (n - 1) * step) * F + k1;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      h_re[at + N1 * (j + L * m)] = last_re[m];
+      h_im[at + N1 * (j + L * m)] = last_im[m];
+    }
+  }
+  asm volatile("barrier.cluster.wait;" ::: "memory");  // every block's sums are visible
+
+  // Rank r: entries [r kBins / C, (r + 1) kBins / C), each the sum over
+  // the C blocks (in rank order) of each block's antenna teams (in team
+  // order); kK1 consecutive entries are kK1 consecutive bins.
+  const int lo = rank * kBins / C, hi = (rank + 1) * kBins / C;
+  float* const inv_k = inv + k * F;
+#pragma unroll 4
+  for (int i = lo + static_cast<int>(threadIdx.x); i < hi; i += blockDim.x) {
+    const int gi = i % split::kK1, k2 = i / split::kK1;
+    float part[kMaxCluster][split::kMaxTeams];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      const float* peer = cluster.map_shared_rank(smem, c < C ? c : rank);
+#pragma unroll
+      for (int p = 0; p < split::kMaxTeams; ++p) {
+        part[c][p] = c < C && p < P ? peer[split::row_team_id(gi, p) * RG::kTeamFloats + k2]
+                                    : 0.0f;
+      }
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      float b = 0.0f;
+#pragma unroll
+      for (int p = 0; p < split::kMaxTeams; ++p) b += part[c][p];
+      s += b;
+    }
+    inv_k[k1_0 + gi + N1 * k2] = invert ? 1.0f / s : s;
+  }
+  cluster.sync();  // no block leaves while a peer still reads its sums
 }
 
 template <int N1>
 cudaError_t split_pilot(bool int16, const void* y_re, const void* y_im, long long stride_k,
-                        long long stride_a, float scale, int K, int A, int teams,
+                        long long stride_a, float scale, int K, int A, int clusters, int teams,
                         const float* x_re, const float* x_im, const float* tw, float* h_re,
                         float* h_im, float* inv, int invert, float* scratch, int chunk,
                         cudaStream_t stream) {
-  const size_t smem = split::row_smem_bytes(teams);
+  const size_t smem = split_pilot_smem_bytes(teams);
   auto kernel = pilot_ls_rows_kernel<N1>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(teams * split::kK1 * split::kRowLanes);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   return split::run_split<N1>(
       int16, y_re, y_im, stride_k, 0, stride_a, 1, A, K, tw, scratch, chunk, stream,
       [&](const float* b_re, const float* b_im, long long i0, int n) {
-        kernel<<<dim3(N1 / split::kK1, n), teams * split::kK1 * split::kRowLanes, smem,
-                 stream>>>(b_re, b_im, i0, A, scale, x_re, x_im, row_tw, h_re, h_im, inv,
-                           invert);
-        return cudaGetLastError();
+        cfg.gridDim = dim3(N1 / split::kK1 * clusters, n);
+        cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, b_re, b_im, i0, A, scale, x_re, x_im,
+                                           row_tw, h_re, h_im, inv, invert);
+        return e != cudaSuccess ? e : cudaGetLastError();
       });
 }
 
@@ -353,13 +490,15 @@ extern "C" int ofdm_pilot_ls(const void* y_re, const void* y_im, int in_int16,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F == 16384 || F == 32768) {
-    if (K < 1 || A < 1 || !ofdm::split_pilot_plan_ok(A, clusters, teams, rows, smem)) {
+    if (K < 1 || A < 1 ||
+        !ofdm::pilot_plan_ok(A, clusters, teams, rows, ofdm::split::kMaxTeams) ||
+        smem != static_cast<long long>(ofdm::split_pilot_smem_bytes(teams))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     auto run_split = [&](auto fn) {
       return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_k, stride_a, scale, K, A,
-                                teams, x_re, x_im, tw, h_re, h_im, inv, invert, scratch,
-                                chunk, st));
+                                clusters, teams, x_re, x_im, tw, h_re, h_im, inv, invert,
+                                scratch, chunk, st));
     };
     return F == 16384 ? run_split(ofdm::split_pilot<128>) : run_split(ofdm::split_pilot<256>);
   }

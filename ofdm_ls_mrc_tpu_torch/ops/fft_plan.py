@@ -150,10 +150,12 @@ def team_floats(f: int) -> int:
 
 PILOT_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 MAX_CLUSTER = 8             # the portable thread block cluster size
+SMS = 132                   # streaming multiprocessors of an H100 SXM: the plans' budget
+SPLIT_PILOT_THREADS_PER_SM = 128   # the split pilot's row-pass threads an SM, at most
 
 
 class PilotPlan(NamedTuple):
-    clusters: int    # C: blocks of one frame's cluster (grid (C, K))
+    clusters: int    # C: blocks of one frame's cluster (grid (C, K); split sizes (n1 / 8 C, K))
     teams: int       # teams of one block
     rows: int        # antenna rows of one team, at most
     threads: int     # threads of one block: teams x T
@@ -182,34 +184,71 @@ def pilot_smem_bytes(f: int, teams: int) -> int:
     """Each team's two buffers, X (two planes of F floats), then the block's
     sum over its teams (F floats; a block of one team sums into its first
     buffer); the pilot reads the pass twiddles through L1, not from shared
-    memory.  At the split sizes the row pass's buffers (``split_smem_bytes``)."""
+    memory.  At the split sizes the row pass's buffers (``split_smem_bytes``),
+    then X of the block's SPLIT_K1 x 128 bins (two planes)."""
     if f in SPLIT_FFT_SIZES:
-        return split_smem_bytes(teams)
+        return split_smem_bytes(teams) + 4 * 2 * SPLIT_K1 * SPLIT_N2
     return 4 * (teams * team_floats(f) + 2 * f + (f if teams > 1 else 0))
 
 
-@functools.lru_cache(maxsize=None)
-def pilot_plan(antennas: int, f: int) -> PilotPlan:
-    """Launch geometry of the pilot kernel for A antenna rows of F bins.
+def pilot_plan(antennas: int, f: int, frames: int = 1) -> PilotPlan:
+    """Launch geometry of the pilot kernel for ``frames`` frames of A
+    antenna rows of F bins.
 
-    A cluster of C blocks per frame, each block as many one-row teams as its
-    thread cap allows, the cluster as large as the rows need up to the
-    portable 8; past 8 x teams rows a team takes several (A = 64 at F = 1024:
-    8 blocks x 4 teams x 2 rows).  At the split sizes the row pass: no
-    cluster (C = 1, a block holds every antenna of its SPLIT_K1 bins k1),
-    up to SPLIT_TEAMS teams, each taking every teams-th row.  Raises for a
-    shape the kernel cannot launch."""
+    A cluster of C blocks per frame (at the split sizes per SPLIT_K1 bins k1
+    of a frame), each block as many one-row teams as its thread cap allows;
+    team g = rank * teams + team of the cluster takes rows g, g + C teams,
+    ... (``pilot_team_rows``).  The register sizes take the cluster as large
+    as the rows need, up to the portable 8 (A = 64 at F = 1024: 8 blocks x 4
+    teams x 2 rows).  The split sizes spread the antennas over as many
+    blocks as they have, up to 8, as long as the card holds every block of
+    every frame's clusters at once (``split_pilot_clusters``: 16 x 16384 is
+    16 clusters of 8 blocks x 2 teams, 16 x 32768 32 of 2 x 4 teams of 2
+    rows).  In
+    both, every block gets a row, and no team slot is idle for a whole row.
+    Raises for a shape the kernel cannot launch."""
     if f not in PILOT_FFT_SIZES:
         raise ValueError(f"pilot_plan: F={f} not in {PILOT_FFT_SIZES}")
     if antennas < 1:
         raise ValueError(f"pilot_plan: {antennas} antennas")
+    if frames < 1:
+        raise ValueError(f"pilot_plan: {frames} frames")
+    if f in SPLIT_FFT_SIZES:
+        return _pilot_plan(antennas, f, split_pilot_clusters(antennas, f, frames))
+    cap = pilot_max_threads(f) // pilot_team_threads(f)
+    return _pilot_plan(antennas, f, min(MAX_CLUSTER, -(-antennas // cap)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_plan(antennas: int, f: int, most: int) -> PilotPlan:
+    """``pilot_plan`` with at most ``most`` blocks a cluster:
+    csrc/pilot_ls.cu checks a plan by the same rules."""
     t = pilot_team_threads(f)
     cap = pilot_max_threads(f) // t
-    clusters = 1 if f in SPLIT_FFT_SIZES else min(MAX_CLUSTER, -(-antennas // cap))
+    clusters = most
     teams = min(cap, -(-antennas // clusters))
+    clusters = min(clusters, -(-antennas // teams))   # every block a row
     rows = -(-antennas // (clusters * teams))
-    teams = -(-antennas // (clusters * rows))  # no team slot left idle per row
+    teams = -(-antennas // (clusters * rows))          # no team slot left idle per row
     return PilotPlan(clusters, teams, rows, teams * t, pilot_smem_bytes(f, teams))
+
+
+def split_pilot_clusters(antennas: int, f: int, frames: int = 1) -> int:
+    """Most blocks of the split pilot's clusters (F = 16384, 32768): one per
+    antenna up to the portable 8, fewer while the launch's frames x n1 / 8
+    clusters would hold more than SPLIT_PILOT_THREADS_PER_SM threads on
+    each of the card's SMS SMs.  Past that the card places the clusters in waves (a block
+    of 4 teams and its 179 registers a thread fills an SM's register file
+    to 70%), and every block's chain is the pilot's time
+    (``tools/split_compare.py --clusters`` times each bound; PERF.md)."""
+    groups = split_factors(f)[0] // SPLIT_K1
+    c = min(MAX_CLUSTER, antennas)
+    while c > 1:
+        p = _pilot_plan(antennas, f, c)
+        if frames * groups * p.clusters * p.threads <= SPLIT_PILOT_THREADS_PER_SM * SMS:
+            break
+        c -= 1
+    return c
 
 
 def pilot_team_rows(antennas: int, p: PilotPlan, rank: int, team: int) -> range:
@@ -221,8 +260,20 @@ def pilot_team_rows(antennas: int, p: PilotPlan, rank: int, team: int) -> range:
 def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
     """Bins whose sum over the cluster's blocks rank ``rank`` adds up (from
     the blocks' shared memory) and whose inv it writes: [rank F / C,
-    (rank + 1) F / C)."""
+    (rank + 1) F / C).  At the split sizes the cluster holds SPLIT_K1 x 128
+    bins (``split_pilot_rank_bins``)."""
     return range(rank * f // clusters, (rank + 1) * f // clusters)
+
+
+def split_pilot_rank_bins(f: int, clusters: int, rank: int, group: int) -> np.ndarray:
+    """The bins whose sum rank ``rank`` of the split pilot's cluster for
+    bins k1 = SPLIT_K1 group .. SPLIT_K1 group + SPLIT_K1 - 1 adds up and
+    writes: entries [rank B / C, (rank + 1) B / C) of the cluster's B =
+    SPLIT_K1 x 128 bins, entry i = (k2 = i // SPLIT_K1, k1 = SPLIT_K1 group +
+    i % SPLIT_K1), bin k1 + n1 k2 (csrc/pilot_ls.cu pilot_ls_rows_kernel)."""
+    n1, n2 = split_factors(f)
+    i = np.arange(rank * SPLIT_K1 * n2 // clusters, (rank + 1) * SPLIT_K1 * n2 // clusters)
+    return SPLIT_K1 * group + i % SPLIT_K1 + n1 * (i // SPLIT_K1)
 
 
 # ---------------------------------------------------------------------------
@@ -237,9 +288,11 @@ def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
 #      B[k1][i2] of its antenna;
 #   2. the row pass: the 128-point DFT of each B[k1][:] (the register FFT at
 #      F = 128, one 8-lane team a row): bin k1 + n1 k2 in register k2 // 8
-#      of lane k2 % 8.  A block takes SPLIT_K1 bins k1 of one symbol and
-#      every antenna, over up to SPLIT_TEAMS teams, so its sums over the
-#      antennas need no other block.
+#      of lane k2 % 8.  A data block takes SPLIT_K1 bins k1 of one symbol
+#      and every antenna, over up to SPLIT_TEAMS teams, so its sums over the
+#      antennas need no other block; the pilot spreads the antennas of its
+#      SPLIT_K1 bins k1 over a cluster (``pilot_plan``,
+#      ``split_pilot_rank_bins``).
 # The exact kernels run both passes at F = 16384 and 32768; the speed
 # kernels run the column pass at F = 8192 to 32768 and their bf16 stage 2
 # in place of the row pass.  The symbols go through in chunks
@@ -346,8 +399,13 @@ def split_chunk(items: int, antennas: int, f: int) -> int:
 # chunk's registers: stage 1 is the split form's column pass (exact float32,
 # into a scratch), and a block of one warpgroup takes SPEED_ROWS_K1 bins k1
 # of one symbol, a chunk of 32 complex rows of each antenna in turn (row
-# r = a n1 + k1, so chunk c is still rows 32 c .. 32 c + 31), sums over the
-# antennas in its registers and needs no cluster.
+# r = a n1 + k1, so chunk c is still rows 32 c .. 32 c + 31).  The data path
+# sums over the antennas in its registers and needs no cluster; the pilot
+# spreads the antennas over a cluster of ``speed_cluster`` blocks (rank r
+# takes antennas r, r + CL, ..., its two warpgroups in turn, a tile each),
+# adds sum |h|^2 over it in distributed
+# shared memory (``speed_pilot_rank_bins``) and copies W once a cluster, by
+# a TMA multicast of its shared-memory image (``speed_w_image``).
 
 SPEED_FFT_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)   # n1 = F / 128, 2 to 256
 SPEED_N2 = 128
@@ -360,6 +418,7 @@ SPEED_DATA_CLUSTER = 2      # blocks a data symbol is spread over, at most
 SPEED_PILOT_CLUSTER = 8     # blocks a pilot is spread over, at most
 SPEED_THREADS = {False: 384, True: 256}  # data / pilot: warpgroup 0 the product, the rest stage 1
 SPEED_ROWS_THREADS = 128    # n1 >= 64: one warpgroup a block (the row pass of the split form)
+SPEED_PILOT_ROWS_THREADS = 256  # n1 >= 64, the pilot: two warpgroups, antennas in turn
 SPEED_ROWS_K1 = 32          # n1 >= 64: bins k1 of a block, one chunk of each antenna
 SPEED_SBO = 1024            # bytes between 8-row groups of a SW128 K-major operand
 
@@ -417,16 +476,40 @@ def speed_chunks(antennas: int, f: int) -> int:
     return -(-antennas * n1 // SPEED_CHUNK_ROWS)
 
 
-def speed_cluster(antennas: int, f: int, pilot: bool, items: int = 1, sms: int = 132) -> int:
+def speed_cluster(antennas: int, f: int, pilot: bool, items: int = 1) -> int:
     """Blocks of the cluster a symbol (the pilot: a frame) is spread over:
     its chunks, at most 2 for the data path and 8 for the pilot, and no
-    more than leaves every one of ``items`` symbols its cluster on ``sms``
-    SMs at once (fft_mrc_bf16.cu launch)."""
+    more than leaves every one of ``items`` symbols its cluster on the
+    card's SMS SMs (fft_mrc_bf16.cu launch, which applies this rule with
+    the device's count of SMs).  From F = 8192 the data path's row pass
+    takes no cluster, and the pilot's (``pilot_rows_kernel``) one block an
+    antenna up to 8, for each of the frame's n1 / 32 groups of bins k1: no
+    more than leaves every block of the ``items`` frames an SM.  That
+    cluster is the launch's: ``estimate_pilot_fused`` passes it to the
+    kernel, which checks it, as it does ``pilot_plan``."""
     most = SPEED_PILOT_CLUSTER if pilot else SPEED_DATA_CLUSTER
-    cl = min(speed_chunks(antennas, f), most)
-    while cl > 1 and items * cl > sms:
+    per = 1   # clusters of one item
+    if f in SPEED_SPLIT_SIZES:
+        if not pilot:
+            return 1
+        cl, per = min(antennas, most), speed_split(f)[0] // SPEED_ROWS_K1
+    else:
+        cl = min(speed_chunks(antennas, f), most)
+    while cl > 1 and items * per * cl > SMS:
         cl -= 1
     return cl
+
+
+def speed_pilot_rank_bins(f: int, clusters: int, rank: int, group: int) -> np.ndarray:
+    """From F = 8192: the bins whose sum |h|^2 rank ``rank`` of the pilot's
+    cluster for bins k1 = 32 group + q adds up over the cluster and writes
+    (1 / sum): entries [rank B / CL, (rank + 1) B / CL) of the cluster's
+    B = 32 x 128 bins, entry i = (k2 = i // 32, q = i % 32), bin
+    n1 k2 + 32 group + q (csrc/fft_mrc_bf16.cu pilot_rows_kernel)."""
+    n1, n2 = speed_split(f)
+    i = np.arange(rank * SPEED_ROWS_K1 * n2 // clusters,
+                  (rank + 1) * SPEED_ROWS_K1 * n2 // clusters)
+    return n1 * (i // SPEED_ROWS_K1) + SPEED_ROWS_K1 * group + i % SPEED_ROWS_K1
 
 
 def speed_tile_row(q: int, plane: int) -> int:
@@ -464,14 +547,40 @@ def speed_swizzle(rows: int, m: int, k: int) -> int:
     return (k // 64) * rows * 128 + m * 128 + ((((k % 64) // 8) ^ (m % 8)) << 4) + (k % 8) * 2
 
 
+def speed_w_image_np() -> np.ndarray:
+    """[32768] float32: the B operand as the kernels lay it out in shared
+    memory (``speed_swizzle`` of operand row n, column k holds W[row, 128
+    plane + k], (row, plane) = ``speed_w_row(n)``), element i at byte 2 i;
+    the pilot's row pass (F >= 8192) copies it into every block of a cluster
+    by one TMA multicast, byte for byte (``speed_w_image``)."""
+    n, k = np.meshgrid(np.arange(SPEED_W_ROWS), np.arange(SPEED_N2), indexing="ij")
+    row, plane = speed_w_row(n)
+    img = np.empty(SPEED_W_ROWS * SPEED_N2, np.float32)
+    img[speed_swizzle(SPEED_W_ROWS, n, k) // 2] = speed_w_np()[row, SPEED_N2 * plane + k]
+    return img
+
+
+@functools.lru_cache(maxsize=None)
+def speed_w_image(device: torch.device) -> torch.Tensor:
+    """``speed_w_image_np`` rounded to bf16 as ``speed_w`` rounds W (the same
+    values, laid out as the shared-memory operand) on the device."""
+    return torch.from_numpy(speed_w_image_np()).to(torch.bfloat16).to(device)
+
+
 def speed_smem_bytes(f: int, pilot: bool) -> int:
     """Dynamic shared memory of a speed kernel's block (fft_mrc_bf16.cu
     Smem): W and two tiles; the data path's two row stages and two h
     stages (32 KB each), or the pilot's h staging ([32][132] x 2 planes) and
     X with 1/|X|^2; 10 barrier slots; 1 KB of alignment slack.  From
-    F = 8192 (the split form's row pass): W and one tile, 1 KB of slack."""
+    F = 8192 (the split form's row pass): W and one tile, 1 KB of slack, and
+    for the pilot a second tile (two warpgroups), X / |X|^2 of its 32 x 128
+    bins (two planes of 128 rows of 32 + 4 floats), a row stage for each
+    warpgroup (32 KB) and the barrier of W's multicast (16 bytes)."""
     if f in SPEED_SPLIT_SIZES:
-        return SPEED_W_ROWS * SPEED_N2 * 2 + SPEED_TILE_ROWS * SPEED_N2 * 2 + 1024
+        tile = SPEED_TILE_ROWS * SPEED_N2 * 2
+        stages = 2 * 2 * SPEED_CHUNK_ROWS * SPEED_N2 * 4
+        return SPEED_W_ROWS * SPEED_N2 * 2 + tile + 1024 + (
+            tile + 2 * SPEED_N2 * (SPEED_ROWS_K1 + 4) * 4 + stages + 16 if pilot else 0)
     base = SPEED_W_ROWS * SPEED_N2 * 2 + 2 * SPEED_TILE_ROWS * SPEED_N2 * 2
     stage = 2 * SPEED_CHUNK_ROWS * SPEED_N2 * 4
     mid = 2 * SPEED_CHUNK_ROWS * SPEED_PART_STRIDE * 4 + 12 * f if pilot else 4 * stage

@@ -245,8 +245,11 @@ def _rows_aligned(x: CArray) -> bool:
 def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                          exact: bool = True) -> Tuple[CArray, torch.Tensor]:
     """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``: one launch, one
-    thread block cluster per frame; with ``exact=False`` the speed kernel
-    ``pilot_ls_bf16`` (``csrc/fft_mrc_bf16.cu``), a cluster per frame too.
+    thread block cluster per frame (at F = 16384 and 32768 the column pass,
+    then a cluster per 8 bins k1 of a frame, ``fft_plan.pilot_plan``); with
+    ``exact=False`` the speed kernel ``pilot_ls_bf16``
+    (``csrc/fft_mrc_bf16.cu``), a cluster per frame too (from F = 8192 the
+    column pass, then a cluster per 32 bins k1, ``fft_plan.speed_cluster``).
 
     Args:
       pilot:  [A, F] or [K, A, F] planes, f32 or int16 (sc16 full scale);
@@ -293,7 +296,7 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
     with torch.cuda.device(dev):
         if exact:
             name = "pilot_ls" if invert else "pilot_ls_sum"
-            plan = fft_plan.pilot_plan(a, f)
+            plan = fft_plan.pilot_plan(a, f, k)
             err = lib.ofdm_pilot_ls(
                 p.re.data_ptr(), p.im.data_ptr(), int(int16),
                 int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
@@ -304,11 +307,14 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
         else:
             name = "pilot_ls_bf16"
             tw, w = _speed_tables(f, int16, dev)
+            split = f in SPEED_SPLIT_SIZES   # the row pass: W's image, a cluster per 32 bins k1
+            img = fft_plan.speed_w_image(dev) if split else None
             err = lib.ofdm_pilot_ls_bf16(
                 p.re.data_ptr(), p.im.data_ptr(), int(int16), p.re.stride(0),
                 p.re.stride(1), k, a, f, x_full.re.data_ptr(), x_full.im.data_ptr(),
-                tw.data_ptr(), w.data_ptr(), h.re.data_ptr(), h.im.data_ptr(),
-                inv.data_ptr(), _ptr(scratch), chunk, stream)
+                tw.data_ptr(), None if split else w.data_ptr(), _ptr(img),
+                fft_plan.speed_cluster(a, f, True, k) if split else 0, h.re.data_ptr(),
+                h.im.data_ptr(), inv.data_ptr(), _ptr(scratch), chunk, stream)
     build.check(lib, err, name)
     launch_counts[name] += 1
     return (h[0], inv[0]) if single else (h, inv)

@@ -55,7 +55,8 @@ def traced_library(cluster: int) -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ofdm_fft_mrc_bf16.argtypes = (p, p, i, ll, ll, ll, i, i, i, i, p, p, p, p, p, p, p, p, i,
                                       p)
-    lib.ofdm_pilot_ls_bf16.argtypes = (p, p, i, ll, ll, i, i, i, p, p, p, p, p, p, p, p, i, p)
+    lib.ofdm_pilot_ls_bf16.argtypes = (p, p, i, ll, ll, i, i, i, p, p, p, p, p, i, p, p, p, p,
+                                       i, p)
     lib.ofdm_speed_trace.argtypes = (p,)
     lib.ofdm_speed_trace_clear.argtypes = ()
     return lib
@@ -119,7 +120,7 @@ def main() -> int:
     io = torch.empty(1, f, device=dev)
     last_of_three(lib, lambda: lib.ofdm_pilot_ls_bf16(
         y[0].re.data_ptr(), y[0].im.data_ptr(), 0, 0, y[0].re.stride(0), 1, 16, f,
-        x.re.data_ptr(), x.im.data_ptr(), tw.data_ptr(), w.data_ptr(), ho.re.data_ptr(),
+        x.re.data_ptr(), x.im.data_ptr(), tw.data_ptr(), w.data_ptr(), None, 0, ho.re.data_ptr(),
         ho.im.data_ptr(), io.data_ptr(), None, 0, stream))
     show(lib, f"pilot_ls_bf16, one 16 x {f} f32 pilot")
     return 0

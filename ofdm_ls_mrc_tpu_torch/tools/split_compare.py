@@ -1,16 +1,23 @@
 """Device time of the kernels at the large-F geometry, kernel by kernel, for
 comparing two trees of the port (or two chunk sizes) on one card.
 
-  python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N]
+  python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N] [--pilots]
 
 On one 16 x F x 100-symbol frame (f32 rows, and the same rows as int16) at
 F = 8192, 16384 and 32768: ``fused_pipeline`` exact (the register FFT at
 8192; the split form's column pass and ``fft_mrc_rows_kernel`` above) and
 ``exact=False`` (the column pass and ``speed_rows_kernel``), ``fused_demod``
-and both pilots, each time the sum of its kernels and each kernel's share
-(torch.profiler device time, the mean over n calls of a trace opened with
-spin kernels that are left out).  ``--chunk N`` caps the split form's
-symbols a chunk at N in place of ``fft_plan.split_chunk``'s choice.  It
+and the pilots (exact, its sum variant, bf16; the split form's column pass
+and ``pilot_ls_rows_kernel`` or ``pilot_rows_kernel``), each time the sum
+of its kernels, each kernel's time and the column pass's and the row
+pass's shares (torch.profiler device time, the mean over n calls of a
+trace opened with spin kernels that are left out), and ``torch.fft.fft``
+over the pilot's 16 rows beside the pilots.  ``--pilots`` times the pilots
+alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768 with
+its clusters capped at 1, 2, 4 and 8 blocks (``fft_plan.split_pilot_clusters``
+in place of the plan's choice) and nothing else.  ``--chunk N`` caps the
+split form's symbols a chunk at N in place of ``fft_plan.split_chunk``'s
+choice.  It
 imports ``ofdm_ls_mrc_tpu_torch`` by absolute name, so
 ``PYTHONPATH=<another checkout>`` times that checkout's package with the
 same calls: two trees in one call on the same card compare in the order
@@ -55,11 +62,49 @@ def device_split(fn, n: int) -> dict:
             if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
 
 
+def shares(split: dict) -> str:
+    """The column pass's and the other kernels' (the row pass's) time and
+    share of a split-form call; '' where no column pass ran."""
+    col = sum(v for k, v in split.items() if "column_pass" in k)
+    total = sum(split.values())
+    if not col or not total:
+        return ""
+    return (f"; column pass {col:.1f} us ({100 * col / total:.0f}%), row pass "
+            f"{total - col:.1f} us ({100 * (total - col) / total:.0f}%)")
+
+
+def cluster_bounds(dev: torch.device, card: str) -> int:
+    """The exact pilot of 16 f32 rows at F = 16384 and 32768 with its
+    clusters capped at 1, 2, 4 and 8 blocks, and at the plan's own bound."""
+    plain = fft_plan.split_pilot_clusters
+    res = {}
+    for f in fft_plan.SPLIT_FFT_SIZES:
+        rng = np.random.default_rng(f)
+        z = 0.1 * (rng.standard_normal((ANTENNAS, f)) + 1j * rng.standard_normal((ANTENNAS, f)))
+        y = CArray.from_numpy(z.astype(np.complex64), dev)
+        x = ls.pad_pilot(np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64), dev)
+        for most in (1, 2, 4, 8, None):
+            fft_plan.split_pilot_clusters = plain if most is None else (
+                lambda a, ff, k=1, most=most: min(most, a))
+            plan = fft_plan.pilot_plan(ANTENNAS, f)
+            split = device_split(lambda: pipe.estimate_pilot_fused(y, x), CALLS)
+            label = f"pilot exact F={f} at most {most or 'the plan'} blocks a cluster"
+            res[label] = {"us": sum(split.values()), "kernels": split, "plan": list(plan)}
+            print(f"{label} (clusters, teams, rows = {tuple(plan[:3])}): "
+                  f"{res[label]['us']:.1f} us device{shares(split)}  [{card}]", flush=True)
+        fft_plan.split_pilot_clusters = plain
+    print(json.dumps({"package": ofdm_ls_mrc_tpu_torch.__file__, "card": card, "us": res}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chunk", type=int, default=0,
                     help="symbols a chunk of the split form, at most (default: split_chunk)")
+    ap.add_argument("--pilots", action="store_true", help="time the pilots alone")
+    ap.add_argument("--clusters", action="store_true",
+                    help="time the exact split pilot at each cluster bound")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("split_compare: no CUDA device", file=sys.stderr)
@@ -72,6 +117,8 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"package {ofdm_ls_mrc_tpu_torch.__file__}, chunk {args.chunk or 'split_chunk'}"
           f"  [{card}]")
+    if args.clusters:
+        return cluster_bounds(dev, card)
     res = {}
     for f in SIZES:
         rng = np.random.default_rng(f)
@@ -83,25 +130,31 @@ def main() -> int:
         x = ls.pad_pilot(np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64), dev)
         h, inv = pipe.estimate_pilot_plain(y[0], x)
         hc, hs = h.conj(), 1 / inv
-        sides = {
+        pilot_c = torch.complex(y.re[0], y.im[0])
+        sides = {} if args.pilots else {
             f"frame exact F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv),
             f"frame exact int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv),
             f"frame bf16 F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv, exact=False),
             f"frame bf16 int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv, exact=False),
             f"mrc_demod F={f}": lambda: fused_mrc.fused_demod(y[1:], hc, hs),
-            f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
-            f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
         }
+        sides.update({
+            f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
+            f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
+            f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
+            f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
+        })
         for label, fn in sides.items():
             split = device_split(fn, CALLS)
             res[label] = {"us": sum(split.values()), "kernels": split}
             parts = ", ".join(f"{k.split('(')[0].replace('void ', '')} {v:.1f}"
                               for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
-            print(f"{label}: {res[label]['us']:.1f} us device ({parts})  [{card}]", flush=True)
-        del y, y16, h, inv, hc, hs
+            print(f"{label}: {res[label]['us']:.1f} us device ({parts}){shares(split)}  [{card}]",
+                  flush=True)
+        del y, y16, h, inv, hc, hs, pilot_c
         torch.cuda.empty_cache()
     print(json.dumps({"package": ofdm_ls_mrc_tpu_torch.__file__, "card": card,
-                      "chunk": args.chunk or None, "us": res}))
+                      "chunk": args.chunk or None, "pilots_only": args.pilots, "us": res}))
     return 0
 
 

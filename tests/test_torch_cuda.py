@@ -432,6 +432,95 @@ def test_large_fft_speed_kernels_match_plain(dev, f, a, s, cp, dtype):
                         pipe.fused_pipeline_plain(y[1:], h_p, inv_p).to_numpy())
 
 
+def large_pilots(dev, f, a, k, dtype, cp=72):
+    """K pilots [K, A, F], read in place from K frames of one symbol (rows
+    past a cyclic prefix of cp, strided by frame), and the padded pilot."""
+    frame, pilot = frame_on(dev, f, a * k, 1, cp, dtype, seed=a + k)
+    rows = CArray(frame.re.reshape(k, a, f + cp)[..., cp:], frame.im.reshape(k, a, f + cp)[..., cp:])
+    return rows, ls.pad_pilot(pilot, dev)
+
+
+# The large-F pilots' clusters (fft_plan.pilot_plan, speed_cluster): one
+# antenna (no cluster), five (uneven blocks), the main path's 16 and 64
+# (several rows a team), one frame and three (a smaller cluster).
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("a", [1, 5, 16, 64])
+@pytest.mark.parametrize("f", [16384, 32768])
+def test_large_pilot_clusters_match_plain(dev, f, a, k, dtype):
+    """The exact split pilot, inv and the sum variant, one launch of each
+    wrapper, against the plain version."""
+    y, x_full = large_pilots(dev, f, a, k, dtype)
+    pipe.reset_launch_counts()
+    h, inv = pipe.estimate_pilot_fused(y, x_full)
+    _, hsq = pipe.estimate_pilot_fused(y, x_full, invert=False)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in pipe.launch_counts.items() if v} == {"pilot_ls": 1, "pilot_ls_sum": 1}
+    h_p, inv_p = pipe.estimate_pilot_plain(y, x_full)
+    sum_p = 1 / inv_p.cpu().numpy()
+    assert max_rel(h.to_numpy(), h_p.to_numpy()) < TOL
+    assert max_rel(1 / inv.cpu().numpy(), sum_p) < TOL
+    assert max_rel(hsq.cpu().numpy(), sum_p) < TOL
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("a", [1, 5, 16, 64])
+@pytest.mark.parametrize("f", [8192, 16384, 32768])
+def test_large_speed_pilot_clusters_match_plain(dev, f, a, k, dtype):
+    """The bf16 pilot's clustered row pass (W multicast once a cluster)
+    against the plain speed version, one launch."""
+    y, x_full = large_pilots(dev, f, a, k, dtype)
+    pipe.reset_launch_counts()
+    h, inv = pipe.estimate_pilot_fused(y, x_full, exact=False)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in pipe.launch_counts.items() if v} == {"pilot_ls_bf16": 1}
+    h_p, inv_p = pipe.estimate_pilot_speed_plain(y, x_full)
+    h_e, inv_e = pipe.estimate_pilot_plain(y, x_full)
+    assert_speed_agrees(h.to_numpy(), h_p.to_numpy(), h_e.to_numpy())
+    assert_speed_agrees(1 / inv.cpu().numpy(), 1 / inv_p.cpu().numpy(), 1 / inv_e.cpu().numpy())
+
+
+@pytest.mark.parametrize("f", [4096, 8192, 32768])
+def test_speed_pilot_entry_refuses_a_wrong_w_or_cluster(dev, f):
+    """ofdm_pilot_ls_bf16 takes W as ``w`` below F = 8192 and as its
+    shared-memory image ``w_image`` from 8192, with the row pass's cluster
+    (1 to min(A, 8)); any other pairing is cudaErrorInvalidValue (1), not a
+    launch on the wrong layout."""
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    a = 4
+    y, x_full = large_pilots(dev, f, a, 1, "f32", cp=0)
+    y = y[0]
+    split = f in fft_plan.SPEED_SPLIT_SIZES
+    tw = (fft_plan.split_tables if split else fft_plan.speed_twiddles)(f, False, dev)
+    w, img = fft_plan.speed_w(dev), fft_plan.speed_w_image(dev)
+    h = CArray(*(torch.empty((1, a, f), device=dev) for _ in range(2)))
+    inv = torch.empty((1, f), device=dev)
+    scratch = torch.empty((2, 1, a, f), device=dev) if split else None
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(w_ptr, img_ptr, clusters):
+        return lib.ofdm_pilot_ls_bf16(
+            y.re.data_ptr(), y.im.data_ptr(), 0, 0, y.re.stride(0), 1, a, f,
+            x_full.re.data_ptr(), x_full.im.data_ptr(), tw.data_ptr(), w_ptr, img_ptr,
+            clusters, h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), 1, stream)
+
+    wp, ip = w.data_ptr(), img.data_ptr()
+    if split:
+        assert call(None, ip, fft_plan.speed_cluster(a, f, True)) == 0
+        bad = [(wp, None, 4), (wp, ip, 4), (None, ip, 0), (None, ip, a + 1), (None, ip, 9)]
+    else:
+        assert call(wp, None, 0) == 0
+        bad = [(None, ip, 0), (wp, ip, 0), (wp, None, 2)]
+    torch.cuda.synchronize()
+    for args in bad:
+        assert call(*args) == 1, args
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("f", [8192, 16384, 32768])
 def test_large_fft_receiver_on_card_matches_golden(dev, f):
     """UplinkReceiver(fused) at 16 x F, cp 72 F / 1024, 11 symbols, through a

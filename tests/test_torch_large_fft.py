@@ -48,7 +48,6 @@ from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
 from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 from ofdm_ls_mrc_tpu_torch.ops.ls import pad_pilot
 from test_torch_fft_plan import emulate
-from test_torch_pilot_plan import emulate_sum
 from test_torch_speed_mode import chunk_product, fragment, stage1_chunks, w_operand
 
 SIZES = (8192, 16384, 32768)
@@ -218,18 +217,37 @@ def test_register_plan_at_8192_matches_numpy():
     assert max_rel(emulate(x), np.fft.fft(x)) < 1e-6
 
 
+def column_twiddles(f: int, int16: bool = False) -> np.ndarray:
+    """[n1, 128] complex64: the column pass's four-step twiddles
+    (fft_split.cu): lane j of the n1-point FFT's team of T lanes forms
+    k1 = j + T m from the table's entries k1 = j, T and 0 by products in
+    float32, the step scaled by 1 / the k1 = 0 entry (the sc16 scale)."""
+    n1, n2 = fp.split_factors(f)
+    tab = fp.split_tables_np(f, int16)
+    four = tab[len(fp.pass_twiddles_np(n1)) + len(fp.pass_twiddles_np(n2)):]
+    four = (four[:, 0] + 1j * four[:, 1]).astype(np.complex64).reshape(n1, n2)
+    t = fp.plan(n1).threads
+    s0 = (np.float32(1) / four[0].real).astype(np.float32)
+    step = (four[t] * s0).astype(np.complex64)
+    out = np.empty((n1, n2), np.complex64)
+    for j in range(t):
+        w = four[j].copy()
+        for m in range(n1 // t):
+            out[j + t * m] = w
+            w = (w * step).astype(np.complex64)
+    return out
+
+
 def emulate_split(x: np.ndarray, int16_scale: float = 1.0) -> np.ndarray:
     """The split form on one row, complex64 as the kernels compute it: the
     column pass (the register FFT at n1 on each column i2, then the
-    four-step twiddle from split_tables_np's last part), the row pass (the
-    register FFT at 128 on each row k1), bin k1 + n1 k2."""
+    four-step twiddle, ``column_twiddles``), the row pass (the register FFT
+    at 128 on each row k1), bin k1 + n1 k2."""
     f = x.shape[0]
     n1, n2 = fp.split_factors(f)
-    tab = fp.split_tables_np(f)
-    four = tab[len(fp.pass_twiddles_np(n1)) + len(fp.pass_twiddles_np(n2)):]
-    four = (four[:, 0] + 1j * four[:, 1]).astype(np.complex64).reshape(n1, n2)
     cols = x.astype(np.complex64).reshape(n1, n2)
-    b = np.stack([emulate(cols[:, i2]) for i2 in range(n2)], axis=1) * four * int16_scale
+    b = np.stack([emulate(cols[:, i2]) for i2 in range(n2)], axis=1)
+    b = b * column_twiddles(f) * int16_scale
     c = np.stack([emulate(b[k1]) for k1 in range(n1)])       # [k1, k2]
     return c.T.reshape(f)                                     # bin n1 k2 + k1
 
@@ -241,6 +259,23 @@ def test_split_form_matches_numpy(f):
     got = emulate_split(x)
     assert np.all(np.isfinite(got))
     assert max_rel(got, np.fft.fft(x)) < 2e-6
+
+
+@pytest.mark.parametrize("int16", [False, True])
+@pytest.mark.parametrize("f", SIZES)
+def test_column_twiddles_by_recurrence(f, int16):
+    """The column pass forms its twiddles by products from three table
+    entries: within 2e-6 of the table (the sc16 scale carried by the k1 = 0
+    entry, not compounded), and the split form on them within 2e-6 of
+    numpy, the exact kernels' 2e-5 bound kept with room."""
+    got = column_twiddles(f, int16)
+    want = fp.speed_twiddles_np(f, int16)
+    assert float(np.max(np.abs(got - want)) / np.max(np.abs(want))) < 2e-6
+    rng = np.random.default_rng(f + 1)
+    x = rng.standard_normal(f) + 1j * rng.standard_normal(f)
+    assert max_rel(emulate_split(x), np.fft.fft(x)) < 2e-6
+    src = (CSRC / "fft_split.cu").read_text()
+    assert "fw[1] = __ldg(four + T * kN2 + i2);" in src and "w = cmul(w, step);" in src
 
 
 @pytest.mark.parametrize("f", SIZES)
@@ -344,61 +379,187 @@ def test_split_blocks_cover_every_bin_once(f):
     assert np.all(seen == 1)
 
 
-@pytest.mark.parametrize("a", [1, 5, 16, 64])
-@pytest.mark.parametrize("f", fp.SPLIT_FFT_SIZES)
-def test_split_pilot_plan_and_sum(f, a):
-    """The split pilot: no cluster, the C entry point's rule for its teams,
-    and its sum over the antenna teams (emulated in the kernel's order)
-    within 1e-6 of the plain version's."""
-    p = fp.pilot_plan(a, f)
-    t0 = min(fp.SPLIT_TEAMS, a)
-    rows = -(-a // t0)
-    assert (p.clusters, p.teams, p.rows) == (1, -(-a // rows), rows)
-    assert p.smem_bytes == fp.split_smem_bytes(p.teams)
-    src = (CSRC / "pilot_ls.cu").read_text()
-    assert "return clusters == 1 && rows == r && teams == (A + r - 1) / r &&" in src
-    rng = np.random.default_rng(a)
+PILOT_ANTENNAS = (1, 3, 5, 16, 64)
+PILOT_FRAMES = (1, 20)
+
+
+def plain_abs2(a: int, f: int, exact: bool, seed: int) -> np.ndarray:
+    """|h|^2 [A, F] of the plain pilot (exact or speed) on random rows."""
+    rng = np.random.default_rng(seed)
     z = 0.1 * (rng.standard_normal((a, f)) + 1j * rng.standard_normal((a, f)))
-    pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
-    h, inv = pipe.estimate_pilot_plain(CArray.from_numpy(z.astype(np.complex64), "cpu"),
-                                       pad_pilot(pilot, "cpu"))
-    got = emulate_sum(h.abs2().numpy(), p)
-    assert max_rel(got, 1 / inv.numpy()) < 1e-6
+    rows = CArray.from_numpy(z.astype(np.complex64), "cpu")
+    x = pad_pilot(np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64), "cpu")
+    h, inv = (pipe.estimate_pilot_plain if exact else pipe.estimate_pilot_speed_plain)(rows, x)
+    return h.abs2().numpy(), 1 / inv.numpy()
 
 
-def emulate_speed_rows(x: CArray, f: int, epilogue) -> dict:
-    """fft_mrc_bf16.cu speed_rows_kernel for one symbol (n1 >= 64): block g
-    takes bins k1 = 32 g + q and, antenna by antenna, the chunk c = a n1/32 +
-    g of the tile layout (speed_chunk_rows), quarter by quarter through the
-    wgmma mirror; thread t folds C of its row q at its fragment's columns
-    into its sums.  Returns {bin: sum over the antennas}."""
+def emulate_cluster_pilot(abs2: np.ndarray, clusters: int, groups: int, k1s, block_rows,
+                          rank_bins) -> tuple:
+    """A clustered row pass over one frame: cluster gi (of ``groups``) takes
+    bins k1s(gi) x every k2; its block ``rank`` sums |h|^2 over the antenna
+    rows ``block_rows(rank)`` (a list of each team's rows, float32, each team
+    in row order, the teams then added in order), and rank r adds the C
+    blocks' sums (in rank order) of ``rank_bins(rank, gi)``.  Returns (how
+    often each (antenna, bin) was taken, how often each bin was written, the
+    sums)."""
+    a, f = abs2.shape
+    n1 = f // 128
+    abs2 = abs2.astype(np.float32)
+    taken, written = np.zeros((a, f), int), np.zeros(f, int)
+    out = np.full(f, np.nan, np.float32)
+    for gi in range(groups):
+        bins = (np.asarray(k1s(gi))[:, None] + n1 * np.arange(128)[None, :]).ravel()
+        blocks = np.zeros((clusters, f), np.float32)
+        for rank in range(clusters):
+            for team in block_rows(rank):
+                part = np.zeros(len(bins), np.float32)
+                for row in team:
+                    taken[row, bins] += 1
+                    part += abs2[row, bins]
+                blocks[rank, bins] += part
+        for rank in range(clusters):
+            mine = np.asarray(rank_bins(rank, gi))
+            written[mine] += 1
+            s = np.zeros(len(mine), np.float32)
+            for c in range(clusters):
+                s += blocks[c, mine]
+            out[mine] = s
+    return taken, written, out
+
+
+@pytest.mark.parametrize("k", PILOT_FRAMES)
+@pytest.mark.parametrize("a", PILOT_ANTENNAS)
+@pytest.mark.parametrize("f", fp.SPLIT_FFT_SIZES)
+def test_split_pilot_plan_and_sum(f, a, k):
+    """The exact split pilot's cluster plan (csrc/pilot_ls.cu
+    pilot_ls_rows_kernel) for K frames, emulated on one frame: a cluster of
+    C blocks for each 8 bins k1, its antenna teams' rows (pilot_team_rows),
+    every (antenna, bin) taken once, the ranks' shares (split_pilot_rank_bins)
+    writing every bin once, and sum |h|^2 in the kernel's order within 1e-6
+    of the plain version's; more than n1 / 8 blocks a frame wherever there
+    are antennas to spread and SMs for them.  The emulation adds each
+    block's teams in team order, then the blocks in rank order, as the
+    kernel's reduce does."""
+    n1, _ = fp.split_factors(f)
+    groups = n1 // fp.SPLIT_K1
+    p = fp.pilot_plan(a, f, k)
+    c = fp.split_pilot_clusters(a, f, k)
+    assert p.clusters <= c <= fp.MAX_CLUSTER
+    assert k * groups * p.clusters * p.threads <= fp.SPLIT_PILOT_THREADS_PER_SM * fp.SMS or c == 1
+    assert p.rows == -(-a // (p.clusters * p.teams)) and p.teams <= fp.SPLIT_TEAMS
+    assert (p.clusters - 1) * p.teams < a
+    assert p.smem_bytes == fp.split_smem_bytes(p.teams) + 8 * fp.SPLIT_K1 * fp.SPLIT_N2
+    if k == 1 and a > 1:
+        assert groups * p.clusters > groups
+    src = (CSRC / "pilot_ls.cu").read_text()
+    assert "!ofdm::pilot_plan_ok(A, clusters, teams, rows, ofdm::split::kMaxTeams) ||" in src
+    assert "const int g = rank * P + rt.p;" in src and "const int step = C * P;" in src
+    assert "const int lo = rank * kBins / C, hi = (rank + 1) * kBins / C;" in src
+    assert "inv_k[k1_0 + gi + N1 * k2] = invert ? 1.0f / s : s;" in src
+    assert "peer[split::row_team_id(gi, p) * RG::kTeamFloats + k2]" in src
+    assert ("return split::row_smem_bytes(teams) + 2 * split::kK1 * split::kN2 * sizeof(float);"
+            in src)
+    abs2, want = plain_abs2(a, f, True, a + k)
+    taken, written, got = emulate_cluster_pilot(
+        abs2, p.clusters, groups, lambda gi: range(fp.SPLIT_K1 * gi, fp.SPLIT_K1 * (gi + 1)),
+        lambda rank: [fp.pilot_team_rows(a, p, rank, t) for t in range(p.teams)],
+        lambda rank, gi: fp.split_pilot_rank_bins(f, p.clusters, rank, gi))
+    assert np.all(taken == 1) and np.all(written == 1)
+    assert max_rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("k", PILOT_FRAMES)
+@pytest.mark.parametrize("a", PILOT_ANTENNAS)
+@pytest.mark.parametrize("f", fp.SPEED_SPLIT_SIZES)
+def test_speed_pilot_cluster_plan_and_sum(f, a, k):
+    """The bf16 pilot's row pass from F = 8192 (fft_mrc_bf16.cu
+    pilot_rows_kernel) for K frames, emulated on one frame: a cluster of CL
+    blocks for each 32 bins k1, rank r taking antennas r, r + CL, ... over
+    its two warpgroups in turn (warpgroup w: r + CL w, r + CL (w + 2), ...;
+    warpgroup 0's sums, then warpgroup 1's added), every (antenna, bin)
+    taken once, the ranks' shares (speed_pilot_rank_bins) writing every bin
+    once, and sum |h|^2 in the kernel's order within 1e-6 of the plain speed
+    version's; the launch takes speed_cluster's cluster, and the C entry
+    checks it."""
+    n1, _ = fp.speed_split(f)
+    groups = n1 // fp.SPEED_ROWS_K1
+    cl = fp.speed_cluster(a, f, True, k)
+    assert 1 <= cl <= min(a, fp.SPEED_PILOT_CLUSTER) and (k * groups * cl <= fp.SMS or cl == 1)
+    if k == 1:
+        assert cl == min(a, fp.SPEED_PILOT_CLUSTER)
+    assert fp.speed_cluster(a, f, False, k) == 1
+    src = (CSRC / "fft_mrc_bf16.cu").read_text()
+    assert "if (cl < 1 || cl > kPilotCluster || cl > p.A) return cudaErrorInvalidValue;" in src
+    assert "fft_plan.speed_cluster(a, f, True, k) if split else 0" in (
+        CSRC.parent / "ops" / "pipeline.py").read_text()
+    assert "const int step = 2 * CL;" in src and "int a = rank + CL * wgi;" in src
+    assert "const int rounds = ((p.A - rank + CL - 1) / CL + 1) / 2;" in src
+    assert "nat[k2 * kNatStride + q] = w ? nat[k2 * kNatStride + q] + sums[ix] : sums[ix];" in src
+    assert f"constexpr int kPilotRowsThreads = {fp.SPEED_PILOT_ROWS_THREADS};" in src
+    assert "const int lo = rank * kBins / CL, hi = (rank + 1) * kBins / CL;" in src
+    assert "inv_k[N1 * (i >> 5) + kRowsK1 * grp + (i & 31)] = 1.0f / s;" in src
+    abs2, want = plain_abs2(a, f, False, a + k)
+    taken, written, got = emulate_cluster_pilot(
+        abs2, cl, groups, lambda gi: range(fp.SPEED_ROWS_K1 * gi, fp.SPEED_ROWS_K1 * (gi + 1)),
+        lambda rank: [range(rank + cl * w, a, 2 * cl) for w in (0, 1)],
+        lambda rank, gi: fp.speed_pilot_rank_bins(f, cl, rank, gi))
+    assert np.all(taken == 1) and np.all(written == 1)
+    assert max_rel(got, want) < 1e-6
+
+
+def test_speed_w_image_is_the_shared_memory_operand():
+    """The 64 KB the bf16 pilot multicasts from F = 8192 is, byte for byte,
+    the B operand the other speed kernels build from W row by row."""
+    img = fp.speed_w_image("cpu")
+    assert img.dtype == torch.bfloat16 and img.numel() * 2 == 65536
+    np.testing.assert_array_equal(img.view(torch.int16).numpy().view(np.uint16), w_operand())
+
+
+def emulate_speed_rows(x: CArray, f: int, epilogue, cluster: int = 1) -> dict:
+    """fft_mrc_bf16.cu's row pass for one symbol (n1 >= 64): the blocks of
+    group g take bins k1 = 32 g + q, block ``rank`` of its cluster the
+    antennas rank, rank + cluster, ... (the pilot's two warpgroups in turn;
+    the data path: one block, every antenna), each the chunk c = a n1/32 + g
+    of the tile layout
+    (speed_chunk_rows), quarter by quarter through the wgmma mirror (the
+    pilot's W from its multicast image); thread t folds C of its row q at its
+    fragment's columns into its sums, and the cluster's sums are added in
+    rank order.  Returns {bin: sum over the antennas}."""
     n1, _ = fp.speed_split(f)
     a = x.shape[0]
     groups = n1 // fp.SPEED_ROWS_K1
-    tiles, w_mem = stage1_chunks(x, f), w_operand()
+    tiles = stage1_chunks(x, f)
+    w_mem = (fp.speed_w_image("cpu").view(torch.int16).numpy().view(np.uint16) if cluster > 1
+             else w_operand())
     out = {}
     for g in range(groups):
-        sums = {}
-        for ant in range(a):
-            c = ant * groups + g
-            for quarter in range(4):
-                d = chunk_product(tiles[c], w_mem, quarter)
-                for t in range(128):
-                    q = 8 * (t // 32) + (t % 32) // 4
-                    k1 = fp.SPEED_ROWS_K1 * g + q
-                    for j in range(4):
-                        for cc in range(2):
-                            cval = complex(d[fragment(t, cc, j)] - d[fragment(t, 2 + cc, j + 4)],
-                                           d[fragment(t, cc, j + 4)] + d[fragment(t, 2 + cc, j)])
-                            b = n1 * (32 * quarter + fragment(t, cc, j)[1]) + k1
-                            sums[b] = sums.get(b, 0j) + epilogue(ant, b, cval)
-        out.update(sums)
+        blocks = []
+        for rank in range(cluster):
+            sums = {}
+            for ant in range(rank, a, cluster):
+                c = ant * groups + g
+                for quarter in range(4):
+                    d = chunk_product(tiles[c], w_mem, quarter)
+                    for t in range(128):
+                        q = 8 * (t // 32) + (t % 32) // 4
+                        k1 = fp.SPEED_ROWS_K1 * g + q
+                        for j in range(4):
+                            for cc in range(2):
+                                cval = complex(d[fragment(t, cc, j)] - d[fragment(t, 2 + cc, j + 4)],
+                                               d[fragment(t, cc, j + 4)] + d[fragment(t, 2 + cc, j)])
+                                b = n1 * (32 * quarter + fragment(t, cc, j)[1]) + k1
+                                sums[b] = sums.get(b, 0j) + epilogue(ant, b, cval)
+            blocks.append(sums)
+        for b in blocks[0]:
+            out[b] = sum(blk.get(b, 0j) for blk in blocks)
     return out
 
 
-@pytest.mark.parametrize("f,a,dtype", [(8192, 2, "f32"), (16384, 1, "int16"), (32768, 1, "f32")])
+@pytest.mark.parametrize("f,a,dtype", [(8192, 2, "f32"), (8192, 3, "int16"), (16384, 1, "int16"),
+                                       (32768, 1, "f32"), (32768, 2, "f32")])
 def test_speed_rows_mirror_reproduces_the_plain_versions(f, a, dtype):
-    """The mirror's pilot (h, inv) and data store against
+    """The mirror's pilot (h, inv; its antennas over the cluster of
+    speed_cluster) and data store (one block, every antenna) against
     estimate_pilot_speed_plain and fused_pipeline_speed_plain on the same
     symbol: only the accumulation order differs (float32, 1e-5)."""
     rng = np.random.default_rng(f + a)
@@ -416,7 +577,7 @@ def test_speed_rows_mirror_reproduces_the_plain_versions(f, a, dtype):
         h[ant, b] = hv
         return abs(hv) ** 2
 
-    sums = emulate_speed_rows(rows[0], f, pilot_epi)
+    sums = emulate_speed_rows(rows[0], f, pilot_epi, fp.speed_cluster(a, f, True))
     assert sorted(sums) == list(range(f))
     h_p, inv_p = pipe.estimate_pilot_speed_plain(rows[0], x_full)
     assert max_rel(h, h_p.to_numpy()) < 1e-5

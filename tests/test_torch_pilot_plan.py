@@ -127,11 +127,11 @@ def test_plan_fits_the_card(f):
     (16, 8192, (8, 1, 2)),   # one team of 256 threads a block, 2 rows a team
     (1, 8192, (1, 1, 1)),
     (64, 8192, (8, 1, 8)),
-    (16, 16384, (1, 4, 4)),  # the split form: no cluster, 4 antenna teams
-    (5, 16384, (1, 3, 2)),
+    (16, 16384, (8, 2, 1)),  # the split form: 16 clusters of 8 blocks x 2 antenna teams
+    (5, 16384, (5, 1, 1)),
     (1, 32768, (1, 1, 1)),
-    (16, 32768, (1, 4, 4)),
-    (64, 32768, (1, 4, 16)),
+    (16, 32768, (2, 4, 2)),  # 32 clusters of 2 blocks: every block resident at once
+    (64, 32768, (2, 4, 8)),
 ])
 def test_plan_shapes(a, f, want):
     assert fp.pilot_plan(a, f)[:3] == want
