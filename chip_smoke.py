@@ -168,7 +168,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1.06 GB each); each kernel's device time on the frame beside its plain
    version, torch.fft.fft of its rows and its bound (3.35 TB/s and the
    measured io floor), the capture's per frame, and the ptxas lines of
-   every new instantiation (30); the three pilots on a 64-antenna pilot
+   every new instantiation (34, the ring kernels' among them); at 16384
+   and 32768 the ring legs: fft_mrc and mrc_demod, each one launch a call
+   on its ring of L2-resident symbol slots, against their plain versions
+   below 2e-5 at 16 and 64 antennas, f32 rows with the 72 F / 1024 prefix
+   and int16 rows, a streamed symbol (S = 1) and full frames (fft_mrc over
+   K = 2 frames of 100 symbols), each leg twice back to back with the
+   counts set to 0 before each; the three pilots on a 64-antenna pilot
    (f32 and int16) against their plain versions; for each pilot at each F one line with its
    time, its column-pass and row-pass times, its parent form's time
    (PERF.md, the kernel table), torch.fft.fft's, its bound and its ptxas
@@ -1560,19 +1566,15 @@ def large_ptxas_lines(report: str):
 
     yield from ptxas_lines(report, (8192,), ("fft_mrc", "mrc_demod", "pilot_ls"), ANTENNAS)
     tail = r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers"
-    teams = fft_plan.split_teams(ANTENNAS)
-    for name, n1, spill, regs in re.findall(
-            r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod|pilot_ls)_rows_kernel"
-            r"ILi(\d+)EE" + tail, report, re.S):
+    for n1, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+pilot_ls_rows_kernelILi(\d+)EE" + tail,
+            report, re.S):
         f = 128 * int(n1)
-        if name == "pilot_ls":
-            plan = fft_plan.pilot_plan(ANTENNAS, f)
-            smem, threads = plan.smem_bytes, (f"{plan.threads} threads a block, a cluster of "
-                                              f"{plan.clusters} for 8 bins k1")
-        else:
-            smem, threads = fft_plan.split_smem_bytes(teams), f"{teams * 64} threads a block"
-        yield (f"ptxas {name}_rows<F {f}> (row pass): {regs} registers, {spill} B spilled, "
-               f"{smem} B dynamic shared memory, {threads} ({ANTENNAS} antennas)")
+        plan = fft_plan.pilot_plan(ANTENNAS, f)
+        yield (f"ptxas pilot_ls_rows<F {f}> (row pass): {regs} registers, {spill} B spilled, "
+               f"{plan.smem_bytes} B dynamic shared memory, {plan.threads} threads a block, a "
+               f"cluster of {plan.clusters} for 8 bins k1 ({ANTENNAS} antennas)")
+    yield from ring_ptxas_lines(report)
     for n1, t, spill, regs in re.findall(
             r"Compiling entry function '_ZN4ofdm5split\d+column_pass_kernelILi(\d+)E(\w)EE"
             + tail, report, re.S):
@@ -1591,6 +1593,87 @@ def large_ptxas_lines(report: str):
                f": {regs} registers, {spill} B spilled, "
                f"{fft_plan.speed_smem_bytes(f, pilot)} B dynamic shared memory, "
                f"{threads} threads a block{cluster}")
+
+
+def ring_ptxas_lines(report: str):
+    """Registers, spills and shared memory of the exact data kernels' ring
+    form (fft_mrc_ring_kernel, mrc_demod_ring_kernel: one persistent launch a
+    call, F = 16384 and 32768, float32 and int16 rows)."""
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan
+
+    for name, n1, t, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_ring_kernelILi(\d+)E(\w)EE"
+            r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers", report, re.S):
+        yield (f"ptxas {name}_ring<F {128 * int(n1)}, {'int16' if t == 's' else 'float'}> "
+               f"(one launch, column and row tiles): {regs} registers, {spill} B spilled, "
+               f"{fft_plan.split_ring_smem_bytes(128 * int(n1))} B dynamic shared memory, "
+               f"{fft_plan.SPLIT_RING_BLOCKS} blocks of 256 threads an SM")
+
+
+def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
+    """Phase 15's ring legs at F (16384, 32768): fft_mrc and mrc_demod, one
+    launch a call, against their plain versions below KERNEL_TOL at 16 and
+    64 antennas, f32 rows with the 72 F / 1024 prefix and int16 rows, S = 1
+    and full frames (fft_mrc: K = 2 frames of 100 symbols); each leg runs
+    twice back to back, the counts set to 0 before each run.  Returns the
+    legs' max-rel, by label."""
+    import torch
+
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc
+    from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+    from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+    cp = 72 * f // 1024
+    out = {}
+    for a in (ANTENNAS, WIDE_PILOT_ANTENNAS):
+        g = torch.Generator(device=dev).manual_seed(f + a)
+        shape = (2, SYMBOLS, a, f + cp)
+        raw = [0.1 * torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+        rows = {"f32 cp %d" % cp: CArray(raw[0], raw[1])[..., cp:],
+                "int16": CArray(*(torch.round(t[..., cp:] * 32767).clamp(-32768, 32767)
+                                  .to(torch.int16).contiguous() for t in raw))}
+        del raw
+        hr = [torch.randn((2, a, f), generator=g, device=dev) for _ in range(2)]
+        h = CArray(*hr)
+        inv = 1.0 / torch.sum(h.abs2(), dim=-2)
+        hc = CArray(hr[0][0].contiguous(), (-hr[1][0]).contiguous())
+        hs = 1.0 / inv[0]
+        for label, y in rows.items():
+            legs = {
+                "fft_mrc full frames": (
+                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv),
+                    lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv), slice(None)),
+                "fft_mrc S=1": (
+                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0]),
+                    lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0]), slice(None)),
+                "mrc_demod full frame": (
+                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[0, 1:], hc, hs),
+                    lambda y=y: fused_mrc.fused_demod_plain(y[0, 1:], hc, hs), slice(1, None)),
+                "mrc_demod S=1": (
+                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[1, 1:2], hc, hs),
+                    lambda y=y: fused_mrc.fused_demod_plain(y[1, 1:2], hc, hs), slice(1, None)),
+            }
+            for leg, (name, kernel, plain, bins) in legs.items():
+                want = plain().to_numpy()[..., bins]
+                items = (2 * (SYMBOLS - 1) if "frames" in leg else
+                         SYMBOLS - 1 if "frame" in leg else 1)
+                for run in (1, 2):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    got = kernel().to_numpy()[..., bins]
+                    torch.cuda.synchronize()
+                    n = counts()
+                    rel = max_rel(got, want)
+                    errs[name] = max(errs[name], max_abs(got, want))
+                    key = f"{name} F={f} {a}x{label} {leg} run {run}"
+                    out[key] = rel
+                    print(f"ring {key}: max-rel {rel:.3e}, launches {n[name]}, ring "
+                          f"(slots, lag) {fft_plan.split_ring(items, a, f)}  [{card}]")
+                    require(rel < KERNEL_TOL and n[name] == 1 and sum(n.values()) == 1,
+                            f"ring {key}: max-rel {rel:.3e}, launches {n}")
+        del rows, h, hr, inv, hc, hs
+        torch.cuda.empty_cache()
+    return out
 
 
 def pilot_ptxas(lines, name: str, f: int) -> list:
@@ -1626,7 +1709,7 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
     t_phase = time.perf_counter()
     lines = list(large_ptxas_lines(report))
     print("\n".join(lines))
-    require(len(lines) == 30, f"ptxas report: {len(lines)} phase-15 instantiations, want 30")
+    require(len(lines) == 34, f"ptxas report: {len(lines)} phase-15 instantiations, want 34")
     rec, records = {"ptxas": lines}, []
     s = SYMBOLS - 1
 
@@ -1741,6 +1824,8 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                     for t in (wide.re, wide.im))))):
                 hold_pilots(f"{WIDE_PILOT_ANTENNAS}x{f} {label} pilot", rx.x_full, rows)
             del wide
+            if f in pipe.SPLIT_FFT_SIZES:  # the data kernels' one-launch ring form
+                r["ring legs"] = ring_legs(dev, f, card, errs, reset_counts, counts)
             if f == 8192:  # the register FFT's element-by-element loads (an odd prefix)
                 small = CArray(*(torch.round(t[:6] * 32767).clamp(-32768, 32767)
                                  .to(torch.int16)[..., 1:1 + f] for t in (frame.re, frame.im)))
@@ -1906,7 +1991,9 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                                     "library_ms": timed(t, "library")[1]},
                     "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {cp}, one frame",
                     **({"pass_split_ms": passes} if passes else {}),
-                    **({"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}
+                    **({"ring": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cuh ring_loop"}
+                       if f in pipe.SPLIT_FFT_SIZES and name in ("fft_mrc", "mrc_demod") else
+                       {"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}
                        if f in pipe.SPLIT_FFT_SIZES or name.endswith("_bf16") else {})})
             del pilot_c, data_c
             cap_bytes = (one_frame_work("fft_mrc", ANTENNAS, f, s)[0] - s * ANTENNAS * f * 4

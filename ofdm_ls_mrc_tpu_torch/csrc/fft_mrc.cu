@@ -46,15 +46,17 @@
 // spills, 204,800 B, one block an SM: one 16 x 8192 x 100 f32 frame takes
 // ~82 us on an H100 against 33.6 us of bytes at 3.35 TB/s.
 //
-// F = 16384 and 32768: the split form (fft_split.cuh).  The column pass
-// (fft_split.cu) writes each row's four-step columns to a scratch, then
-// fft_mrc_rows_kernel (below) runs the 128-point FFT of each scratch row,
-// a block taking kK1 = 8 bins k1 of one symbol over every antenna (4
-// antenna teams at 16 antennas, 256 threads), folds Y conj(h) and stores
-// as above: eq = num * inv * scale in reference order.  ptxas: 128
-// registers, no spills, 70,656 B, two blocks an SM.  A 16 x 32768 x 100 f32
-// frame takes ~880 us on an H100 against 134 us of bytes: the scratch's
-// write and read, the estimate's 16-byte pieces (PERF.md).
+// F = 16384 and 32768: the split form (fft_split.cuh) as one persistent
+// launch, fft_mrc_ring_kernel below: column tiles (the column pass of C
+// columns of one antenna row) and row tiles (the 128-point FFT of kK1 = 8
+// bins k1 of one symbol over every antenna, 4 antenna teams at 16
+// antennas, 256 threads, Y conj(h) folded from the estimate slice staged in
+// shared memory, stored as above: eq = num * inv * scale in reference
+// order) taken by ticket, meeting in a ring of symbol slots that L2 holds
+// (ops/fft_plan.py split_ring).  Its device traffic is the rows' read and
+// the output's write (a 16 x 32768 x 100 f32 frame: 445 MB, 134 us at
+// 3.35 TB/s), where the two-launch form before it also wrote and read a
+// 419 MB scratch; ptxas and the times: chip_smoke.py phase 15, PERF.md.
 
 #include <cstdint>
 
@@ -145,70 +147,47 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
 #undef OFDM_FFT_MRC_CASE
 }
 
-// F = 16384 and 32768 (fft_split.cuh): the row pass of items [item0,
-// item0 + gridDim.y) of the scratch b [n, A, n1, 128], kK1 bins k1 a block,
-// each folded as Y conj(h) over every antenna of its block; the epilogue
-// is the one above: eq = num * inv * scale in reference order.
-template <int N1>
-__global__ void __launch_bounds__(split::kRowThreads)
-fft_mrc_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
-                    long long item0, int S, int A, float scale,
-                    const float* __restrict__ h_re, const float* __restrict__ h_im,
-                    const float* __restrict__ inv, const float2* __restrict__ tw,
-                    float* __restrict__ out_re, float* __restrict__ out_im) {
+// F = 16384 and 32768 (fft_split.cuh ring_loop): one launch over the K S
+// symbols; a row tile folds Y conj(h) of its frame's estimate over every
+// antenna, then stores eq = num * inv * scale in reference order.
+template <int N1, typename E>
+__global__ void __launch_bounds__(split::kRowThreads, split::kRingBlocks)
+fft_mrc_ring_kernel(const split::RingArgs p) {
   constexpr int F = N1 * split::kN2;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const long long il = blockIdx.y;
-  const long long item = item0 + il;
-  const int k = static_cast<int>(item / S);
-  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
-  const int k1_0 = blockIdx.x * split::kK1;
-  const float* const hk_re = h_re + static_cast<long long>(k) * A * F;
-  const float* const hk_im = h_im + static_cast<long long>(k) * A * F;
-  auto fold = [&](int a, int k1, int k2, float2 y, float& acc_re, float& acc_im) {
-    const long long at = static_cast<long long>(a) * F + k1 + N1 * k2;
-    const float cr = __ldg(hk_re + at), ci = __ldg(hk_im + at);
-    acc_re += y.x * cr + y.y * ci;  // Y * conj(h)
-    acc_im += y.y * cr - y.x * ci;
-  };
-  const long long rows = il * A * F;
-  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
-  __syncthreads();
-  const float* inv_k = inv + static_cast<long long>(k) * F;
-  const long long orow = item * (F - 1);
-  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
-    const int g = i % split::kK1, k2 = i / split::kK1;
-    const int bin = k1_0 + g + N1 * k2;
-    if (bin == 0) continue;  // DC bin
-    int j = bin - F / 2;
-    if (j < 0) j += F - 1;
-    const float2 num = split::row_sum(smem, P, g, k2);
-    const float gain = inv_k[bin] * scale;
-    out_re[orow + j] = num.x * gain;
-    out_im[orow + j] = num.y * gain;
-  }
+  const int P = split::data_teams(p.A);
+  split::ring_loop<N1, E>(p, smem, [&](int item, int q, const float* b_re, const float* b_im,
+                                       const float2* row_tw, uint64_t policy, auto gate,
+                                       auto done) {
+    const int k = item / p.S;
+    const int k1_0 = q * split::kK1;
+    const long long hk = static_cast<long long>(k) * p.A * F;
+    float* const gs = smem + split::ring_gain_offset();
+    split::stage_gain<N1>(gs, p.gain + static_cast<long long>(k) * F, k1_0);
+    split::row_pass<N1, true>(b_re, b_im, p.h_re + hk, p.h_im + hk, p.A, P, k1_0, row_tw, smem,
+                              gate);
+    __syncthreads();
+    done();
+    const long long orow = static_cast<long long>(item) * (F - 1);
+    for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += split::kRowThreads) {
+      const int g = i % split::kK1, k2 = i / split::kK1;
+      const int bin = k1_0 + g + N1 * k2;
+      if (bin == 0) continue;  // DC bin
+      int j = bin - F / 2;
+      if (j < 0) j += F - 1;
+      const float2 num = split::row_sum(smem, P, g, k2);
+      const float gain = gs[i] * p.scale;
+      split::st_evict_first(p.out_re + orow + j, num.x * gain, policy);
+      split::st_evict_first(p.out_im + orow + j, num.y * gain, policy);
+    }
+  });
 }
 
 template <int N1>
-cudaError_t split_fft_mrc(bool int16, const void* y_re, const void* y_im, long long stride_k,
-                          long long stride_s, long long stride_a, float scale, int K, int S,
-                          int A, const float* h_re, const float* h_im, const float* inv,
-                          const float* tw, float* out_re, float* out_im, float* scratch,
-                          int chunk, cudaStream_t stream) {
-  const int P = split::data_teams(A);
-  const size_t smem = split::row_smem_bytes(P);
-  auto kernel = fft_mrc_rows_kernel<N1>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
-  return split::run_split<N1>(
-      int16, y_re, y_im, stride_k, stride_s, stride_a, S, A, static_cast<long long>(K) * S, tw,
-      scratch, chunk, stream, [&](const float* b_re, const float* b_im, long long i0, int n) {
-        kernel<<<dim3(N1 / split::kK1, n), P * split::kK1 * split::kRowLanes, smem, stream>>>(
-            b_re, b_im, i0, S, A, scale, h_re, h_im, inv, row_tw, out_re, out_im);
-        return cudaGetLastError();
-      });
+cudaError_t ring_fft_mrc(bool int16, const split::RingArgs& p, cudaStream_t stream) {
+  return int16 ? split::launch_ring<N1>(fft_mrc_ring_kernel<N1, int16_t>, p, stream)
+               : split::launch_ring<N1>(fft_mrc_ring_kernel<N1, float>, p, stream);
 }
 
 }  // namespace ofdm
@@ -221,24 +200,27 @@ cudaError_t split_fft_mrc(bool int16, const void* y_re, const void* y_im, long l
 // h_re/h_im: [K, A, F] unconjugated estimate, inv: [K, F], natural order.
 // tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and 32768 its
 // split table.  Outputs out_re/out_im: [K, S, F-1] in reference order.
-// scratch, chunk: at F = 16384 and 32768 the split form's scratch
-// [2, chunk, A, F] float32 and the symbols of one chunk (ops/fft_plan.py
-// split_chunk); unused below.  Returns the cudaError_t of the launches.
+// scratch, slots, lag, counters: at F = 16384 and 32768 the ring [2, slots,
+// A, F] float32, the schedule's lag and its zeroed counters [1 + 2 K S]
+// (ops/fft_plan.py split_ring); unused below.  Returns the cudaError_t of
+// the launch.
 extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
                             int aligned, long long stride_k, long long stride_s,
                             long long stride_a, float scale, int K, int S, int A,
                             int F, const float* h_re, const float* h_im,
                             const float* inv, const float* tw, float* out_re,
-                            float* out_im, float* scratch, int chunk, void* stream) {
+                            float* out_im, float* scratch, int slots, int lag,
+                            unsigned* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F == 16384 || F == 32768) {
-    auto run_split = [&](auto fn) {
-      return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_k, stride_s, stride_a,
-                                 scale, K, S, A, h_re, h_im, inv, tw, out_re, out_im,
-                                 scratch, chunk, st));
-    };
-    return F == 16384 ? run_split(ofdm::split_fft_mrc<128>)
-                      : run_split(ofdm::split_fft_mrc<256>);
+    const long long items = static_cast<long long>(K) * S;
+    if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const ofdm::split::RingArgs p{y_re, y_im, stride_k, stride_s, stride_a, S, A,
+                                  static_cast<int>(items), slots, lag, scale,
+                                  reinterpret_cast<const float2*>(tw), scratch, counters,
+                                  h_re, h_im, inv, out_re, out_im};
+    return static_cast<int>(F == 16384 ? ofdm::ring_fft_mrc<128>(in_int16 != 0, p, st)
+                                       : ofdm::ring_fft_mrc<256>(in_int16 != 0, p, st));
   }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_k, stride_s, stride_a, scale, K, S, A, h_re,
@@ -254,3 +236,10 @@ extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
   }
   return static_cast<int>(err);
 }
+
+#ifdef OFDM_RING_TRACE
+// The stamp buffer of a traced build (fft_split.cuh ring_trace), or null.
+extern "C" int ofdm_ring_trace_set(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(ofdm::split::ring_trace, &buf, sizeof(buf)));
+}
+#endif

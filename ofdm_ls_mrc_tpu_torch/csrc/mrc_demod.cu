@@ -15,9 +15,11 @@
 // 128 threads holds 2 (F = 256, 512) or 4 (F = 64, 128) symbols, so each
 // h row a team reads serves that many symbols from L1; F = 8192 is one team
 // of 256 threads a symbol (218-224 registers, 204,800 B); F = 16384 and
-// 32768 run the split form (fft_split.cuh): the column pass, then
-// mrc_demod_rows_kernel below, 8 bins k1 of one symbol a block over every
-// antenna (114 registers, no spills, 70,656 B).
+// 32768 run the split form (fft_split.cuh) as one persistent launch,
+// mrc_demod_ring_kernel below: column tiles and row tiles (8 bins k1 of one
+// symbol over every antenna, Y hc folded from the estimate slice staged in
+// shared memory) taken by ticket, meeting in a ring of symbol slots that L2
+// holds, as fft_mrc.cu's (ptxas: chip_smoke.py phase 15).
 //
 // Bound on this card: bytes, as fft_mrc.cu: 16 antennas x 1024 x 100 f32
 // symbols read 13.1 MB of rows plus 0.13 MB of estimate and write 0.82 MB,
@@ -109,63 +111,41 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
 #undef OFDM_MRC_DEMOD_CASE
 }
 
-// F = 16384 and 32768 (fft_split.cuh): the row pass of symbols [item0,
-// item0 + gridDim.y) of the scratch b [n, A, n1, 128], each bin folded as
-// Y hc over every antenna of its block; eq = num * scale / hsqrd, true
-// order.
-template <int N1>
-__global__ void __launch_bounds__(split::kRowThreads)
-mrc_demod_rows_kernel(const float* __restrict__ b_re, const float* __restrict__ b_im,
-                      long long item0, int A, float scale, const float* __restrict__ hc_re,
-                      const float* __restrict__ hc_im, const float* __restrict__ hsqrd,
-                      const float2* __restrict__ tw, float* __restrict__ out_re,
-                      float* __restrict__ out_im) {
+// F = 16384 and 32768 (fft_split.cuh ring_loop): one launch over the S
+// symbols; a row tile folds Y hc over every antenna, then stores
+// eq = num * scale / hsqrd, true order.
+template <int N1, typename E>
+__global__ void __launch_bounds__(split::kRowThreads, split::kRingBlocks)
+mrc_demod_ring_kernel(const split::RingArgs p) {
   constexpr int F = N1 * split::kN2;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const long long il = blockIdx.y;
-  const long long s = item0 + il;
-  const int P = static_cast<int>(blockDim.x) / (split::kK1 * split::kRowLanes);
-  const int k1_0 = blockIdx.x * split::kK1;
-  auto fold = [&](int a, int k1, int k2, float2 y, float& acc_re, float& acc_im) {
-    const long long at = static_cast<long long>(a) * F + k1 + N1 * k2;
-    const float cr = __ldg(hc_re + at), ci = __ldg(hc_im + at);
-    acc_re += y.x * cr - y.y * ci;  // Y * hc, hc already conjugated
-    acc_im += y.x * ci + y.y * cr;
-  };
-  const long long rows = il * A * F;
-  split::row_pass<N1>(b_re + rows, b_im + rows, A, P, k1_0, tw, smem, fold);
-  __syncthreads();
-  const long long row = s * F;
-  for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += blockDim.x) {
-    const int g = i % split::kK1, k2 = i / split::kK1;
-    const int bin = k1_0 + g + N1 * k2;
-    const float2 num = split::row_sum(smem, P, g, k2);
-    const float gain = scale / hsqrd[bin];
-    out_re[row + bin] = num.x * gain;
-    out_im[row + bin] = num.y * gain;
-  }
+  const int P = split::data_teams(p.A);
+  split::ring_loop<N1, E>(p, smem, [&](int item, int q, const float* b_re, const float* b_im,
+                                       const float2* row_tw, uint64_t policy, auto gate,
+                                       auto done) {
+    const int k1_0 = q * split::kK1;
+    float* const gs = smem + split::ring_gain_offset();
+    split::stage_gain<N1>(gs, p.gain, k1_0);
+    split::row_pass<N1, false>(b_re, b_im, p.h_re, p.h_im, p.A, P, k1_0, row_tw, smem, gate);
+    __syncthreads();
+    done();
+    const long long row = static_cast<long long>(item) * F;
+    for (int i = threadIdx.x; i < split::kK1 * split::kN2; i += split::kRowThreads) {
+      const int g = i % split::kK1, k2 = i / split::kK1;
+      const int bin = k1_0 + g + N1 * k2;
+      const float2 num = split::row_sum(smem, P, g, k2);
+      const float gain = p.scale / gs[i];
+      split::st_evict_first(p.out_re + row + bin, num.x * gain, policy);
+      split::st_evict_first(p.out_im + row + bin, num.y * gain, policy);
+    }
+  });
 }
 
 template <int N1>
-cudaError_t split_mrc_demod(bool int16, const void* y_re, const void* y_im,
-                            long long stride_s, long long stride_a, float scale, int S, int A,
-                            const float* hc_re, const float* hc_im, const float* hsqrd,
-                            const float* tw, float* out_re, float* out_im, float* scratch,
-                            int chunk, cudaStream_t stream) {
-  const int P = split::data_teams(A);
-  const size_t smem = split::row_smem_bytes(P);
-  auto kernel = mrc_demod_rows_kernel<N1>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const float2* row_tw = reinterpret_cast<const float2*>(tw) + split::row_tw_offset<N1>();
-  return split::run_split<N1>(
-      int16, y_re, y_im, 0, stride_s, stride_a, S, A, S, tw, scratch, chunk, stream,
-      [&](const float* b_re, const float* b_im, long long i0, int n) {
-        kernel<<<dim3(N1 / split::kK1, n), P * split::kK1 * split::kRowLanes, smem, stream>>>(
-            b_re, b_im, i0, A, scale, hc_re, hc_im, hsqrd, row_tw, out_re, out_im);
-        return cudaGetLastError();
-      });
+cudaError_t ring_mrc_demod(bool int16, const split::RingArgs& p, cudaStream_t stream) {
+  return int16 ? split::launch_ring<N1>(mrc_demod_ring_kernel<N1, int16_t>, p, stream)
+               : split::launch_ring<N1>(mrc_demod_ring_kernel<N1, float>, p, stream);
 }
 
 }  // namespace ofdm
@@ -177,24 +157,23 @@ cudaError_t split_mrc_demod(bool int16, const void* y_re, const void* y_im,
 // cp.async load path.  hc_re/hc_im: [A, F] conjugated estimate, hsqrd: [F],
 // true order.  tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and
 // 32768 its split table.  Outputs out_re/out_im: [S, F], true order.
-// scratch, chunk: at F = 16384 and 32768 the split form's scratch
-// [2, chunk, A, F] float32 and the symbols of one chunk; unused below.
-// Returns the cudaError_t of the launches.
+// scratch, slots, lag, counters: at F = 16384 and 32768 the ring [2, slots,
+// A, F] float32, the schedule's lag and its zeroed counters [1 + 2 S]
+// (ops/fft_plan.py split_ring); unused below.  Returns the cudaError_t of
+// the launch.
 extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                               int aligned, long long stride_s, long long stride_a,
                               float scale, int S, int A, int F, const float* hc_re,
                               const float* hc_im, const float* hsqrd, const float* tw,
-                              float* out_re, float* out_im, float* scratch, int chunk,
-                              void* stream) {
+                              float* out_re, float* out_im, float* scratch, int slots,
+                              int lag, unsigned* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F == 16384 || F == 32768) {
-    auto run_split = [&](auto fn) {
-      return static_cast<int>(fn(in_int16 != 0, y_re, y_im, stride_s, stride_a, scale, S, A,
-                                 hc_re, hc_im, hsqrd, tw, out_re, out_im, scratch, chunk,
-                                 st));
-    };
-    return F == 16384 ? run_split(ofdm::split_mrc_demod<128>)
-                      : run_split(ofdm::split_mrc_demod<256>);
+    const ofdm::split::RingArgs p{y_re, y_im, 0, stride_s, stride_a, S, A, S, slots, lag,
+                                  scale, reinterpret_cast<const float2*>(tw), scratch,
+                                  counters, hc_re, hc_im, hsqrd, out_re, out_im};
+    return static_cast<int>(F == 16384 ? ofdm::ring_mrc_demod<128>(in_int16 != 0, p, st)
+                                       : ofdm::ring_mrc_demod<256>(in_int16 != 0, p, st));
   }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_s, stride_a, scale, S, A, hc_re, hc_im, hsqrd,

@@ -43,9 +43,9 @@ SIGNATURES = {
     "ofdm_pilot_ls": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I, _I, _I, _I, _LL,
                       _P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
     "ofdm_fft_mrc": (_P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P, _I, _P),
+                     _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "ofdm_mrc_demod": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _I, _P),
+                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "ofdm_pilot_ls_bf16": (_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                            _P, _P, _P, _I, _P),
     "ofdm_fft_mrc_bf16": (_P, _P, _I, _LL, _LL, _LL, _I, _I, _I, _I,

@@ -295,9 +295,14 @@ def split_pilot_rank_bins(f: int, clusters: int, rank: int, group: int) -> np.nd
 #      ``split_pilot_rank_bins``).
 # The exact kernels run both passes at F = 16384 and 32768; the speed
 # kernels run the column pass at F = 8192 to 32768 and their bf16 stage 2
-# in place of the row pass.  The symbols go through in chunks
-# (``split_chunk``), each the column pass then the row pass on one scratch
-# [2, chunk, A, F].
+# in place of the row pass.  The pilots and the speed kernels take the
+# symbols (frames) in chunks (``split_chunk``), each the column pass then
+# the row pass on one scratch [2, chunk, A, F].  The two exact data kernels
+# (fft_mrc, mrc_demod) run both passes in one persistent launch whose tiles
+# (a column tile: one column-pass block's columns of one antenna row; a row
+# tile: SPLIT_K1 bins k1 of one symbol) are taken by ticket in the order of
+# ``ring_ticket`` and meet in a ring of ``split_ring`` symbol slots,
+# [2, slots, A, F], that L2 holds.
 
 SPLIT_FFT_SIZES = (16384, 32768)           # the exact kernels' two-pass sizes
 SPEED_SPLIT_SIZES = (8192, 16384, 32768)   # the speed kernels' (n1 = 64 to 256)
@@ -306,6 +311,11 @@ SPLIT_K1 = 8                 # bins k1 of an exact row-pass block
 SPLIT_TEAMS = 4              # antenna teams of an exact row-pass block, at most
 SPLIT_COLUMN_THREADS = 256   # threads of a column-pass block
 SPLIT_SCRATCH_BYTES = 512 << 20  # a chunk's scratch: at most this much, one symbol at least
+SPLIT_RING_BYTES = 40 << 20      # the data kernels' ring: its share of the H100's 50 MB L2
+SPLIT_RING_MIN_SLOTS = 8         # slots the share must hold for the ring to stay in L2
+SPLIT_RING_BLOCKS = 2            # ring-kernel blocks an SM (__launch_bounds__)
+SPLIT_RING_LAG_BLOCKS = 2.0      # the lag's ticket distance, in blocks of the grid
+H100_SMS = 132
 
 
 def split_factors(f: int) -> Tuple[int, int]:
@@ -365,12 +375,82 @@ def split_tables(f: int, int16: bool, device: torch.device) -> torch.Tensor:
 
 
 def split_chunk(items: int, antennas: int, f: int) -> int:
-    """Symbols (the pilot: frames) of one chunk: as many as a scratch of
-    SPLIT_SCRATCH_BYTES holds, at least one, no more than there are.  Fewer,
-    larger launches beat a scratch small enough for L2: a 16 x 32768 frame
-    in chunks of 8 symbols (a 32 MB scratch) took 1.24x the time of one
-    chunk of 100 on an H100 (PERF.md, the split form)."""
+    """Frames (the pilots) or symbols (the speed data kernel) of one chunk
+    of the chunked split form: as many as a scratch of SPLIT_SCRATCH_BYTES
+    holds, at least one, no more than there are.  With the passes as two
+    launches a chunk, fewer, larger launches beat a scratch small enough for
+    L2: a 16 x 32768 frame in chunks of 8 symbols (a 32 MB scratch) took
+    1.24x the time of one chunk of 100 on an H100, the card draining
+    between the launches (PERF.md, the split form).  The exact data kernels
+    keep their scratch in L2 without that cost: one launch, ``split_ring``."""
     return max(1, min(items, SPLIT_SCRATCH_BYTES // (antennas * f * 8)))
+
+
+def split_ring_tiles(antennas: int, f: int) -> Tuple[int, int]:
+    """(column tiles, row tiles) of one symbol in the data kernels' ring:
+    A x 128 / C column groups (``split_columns``), n1 / SPLIT_K1 bin groups."""
+    n1, n2 = split_factors(f)
+    return antennas * (n2 // split_columns(n1)), n1 // SPLIT_K1
+
+
+def split_ring(items: int, antennas: int, f: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(slots R, lag L) of the exact data kernels' ring over ``items``
+    symbols of A rows at F (csrc/fft_split.cuh ring_loop).
+
+    Where SPLIT_RING_BYTES holds SPLIT_RING_MIN_SLOTS [2, A, F] float32
+    symbol slots or more (16 antennas: 10 at 32768, 20 at 16384), R is as
+    many as it holds and the ring stays in L2; L is the steps between a
+    symbol's column tiles and its row tiles, enough tickets (ring_ticket)
+    for SPLIT_RING_LAG_BLOCKS times the grid (SPLIT_RING_BLOCKS an SM of
+    ``sms``) that a row tile seldom waits for its columns, at most R // 2 so
+    that a column tile as seldom waits for its slot.  Where it holds fewer
+    (64 antennas: 2 at 32768, 5 at 16384), a row tile's 16 rows a team
+    outlast the few steps a slot has: 2 slots measured 4.1x the two-launch
+    form's time at 64 x 32768 on an H100, 8 slots at lag 1 still 1.4x, the
+    row tiles waiting for their columns (PERF.md).  There the ring takes as
+    many slots as the chunked form's SPLIT_SCRATCH_BYTES and leaves L2 for
+    device memory, with L = R // 2.  R is never more than there are
+    symbols, L at least 1; the kernel needs L <= items and, where a slot is
+    reused (items > R), L < R: its C entry refuses any other pair."""
+    slot = 2 * antennas * f * 4
+    if SPLIT_RING_BYTES // slot >= SPLIT_RING_MIN_SLOTS:
+        slots = max(1, min(items, SPLIT_RING_BYTES // slot))
+        ct, rt = split_ring_tiles(antennas, f)
+        want = math.ceil(SPLIT_RING_LAG_BLOCKS * SPLIT_RING_BLOCKS * sms / (ct + rt))
+        return slots, max(1, min(want, slots // 2))
+    slots = max(1, min(items, SPLIT_SCRATCH_BYTES // slot))
+    return slots, max(1, slots // 2)
+
+
+def ring_ticket(t: int, items: int, lag: int, ct: int, rt: int) -> Tuple[bool, int, int]:
+    """Ticket t of the ring -> (column tile?, symbol, tile index), as
+    csrc/fft_split.cuh ring_ticket: steps [0, L) hold the ct column tiles
+    of symbol step, steps [L, items) those and then the rt row tiles of
+    symbol step - L, steps [items, items + L) the row tiles of symbol
+    step - L; items (ct + rt) tickets in all."""
+    head = lag * ct
+    if t < head:
+        return True, t // ct, t % ct
+    t -= head
+    both = (items - lag) * (ct + rt)
+    if t < both:
+        step, r = lag + t // (ct + rt), t % (ct + rt)
+        return (True, step, r) if r < ct else (False, step - lag, r - ct)
+    t -= both
+    return False, items - lag + t // rt, t % rt
+
+
+def split_ring_smem_bytes(f: int) -> int:
+    """Dynamic shared memory of a ring-kernel block at F: the row pass's
+    buffers of SPLIT_TEAMS antenna teams (``split_smem_bytes``), each team's
+    estimate slice (SPLIT_K1 x 128 complex float32), the row tile's SPLIT_K1
+    x 128 float32 gains and the pass twiddles of both FFTs (the first two
+    parts of ``split_tables``, float32 pairs); a column tile takes
+    ``split_column_smem_bytes`` of it."""
+    n1, n2 = split_factors(f)
+    twiddles = len(pass_twiddles_np(n1)) + len(pass_twiddles_np(n2))
+    return (split_smem_bytes(SPLIT_TEAMS) + 4 * SPLIT_TEAMS * 2 * SPLIT_K1 * SPLIT_N2
+            + 4 * SPLIT_K1 * SPLIT_N2 + 8 * twiddles)
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,12 @@ no upper F (any (2^k, 128) split); the port's kernels stop at 32768, past
 the largest FFT of a public OFDM standard (DVB-T2's 32K mode).
 
 F = 16384 and 32768 (the exact kernels) and F = 8192 to 32768 (the speed
-kernels) run in the split form of ``fft_plan`` (``csrc/fft_split.cuh``):
-each kernel is then a column pass into a scratch and its own row pass,
-over chunks of symbols; one wrapper call, one count.
+kernels) run in the split form of ``fft_plan`` (``csrc/fft_split.cuh``): a
+column pass and each kernel's own row pass.  The pilots and the speed data
+kernel run them as launches over chunks of a scratch in device memory; the
+exact data kernel as one persistent launch whose column and row tiles meet
+in a ring of symbol slots that L2 holds (``fft_plan.split_ring``).  One
+wrapper call, one count.
 
 The pilot takes ``invert=False`` for the sharded receivers
 (``parallel/``): it then returns the antenna shard's sum_a |h|^2 itself,
@@ -353,22 +356,22 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     st = y.re.stride()
     int16 = y.dtype == torch.int16
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch, chunk = _split_scratch(k * s, a, f, SPLIT_FFT_SIZES if exact else SPEED_SPLIT_SIZES,
-                                    dev)
     with torch.cuda.device(dev):
         if exact:
             name = "fft_mrc"
+            ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev)
             err = lib.ofdm_fft_mrc(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16),
                 int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
                 h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
                 _exact_table(f, dev).data_ptr(), out.re.data_ptr(),
-                out.im.data_ptr(), _ptr(scratch), chunk, stream)
+                out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
         else:
             name = "fft_mrc_bf16"
             if any(t.data_ptr() % 16 for t in (h.re, h.im)):
                 raise ValueError("fused_pipeline(exact=False): h planes must start 16-byte "
                                  "aligned (the kernel copies h rows in bulk)")
+            scratch, chunk = _split_scratch(k * s, a, f, SPEED_SPLIT_SIZES, dev)
             tw, w = _speed_tables(f, int16, dev)
             err = lib.ofdm_fft_mrc_bf16(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16), st[0], st[1], st[2], k, s, a,
@@ -412,16 +415,41 @@ def _exact_table(f: int, dev: torch.device) -> torch.Tensor:
 
 def _split_scratch(items: int, a: int, f: int, sizes,
                    dev: torch.device) -> Tuple[Optional[torch.Tensor], int]:
-    """(scratch [2, chunk, A, F] float32, chunk) of the split form's two
-    passes over ``items`` symbols (the pilot: frames) of A rows where the
+    """(scratch [2, chunk, A, F] float32, chunk) of the chunked split form's
+    two passes over ``items`` symbols (the pilot: frames) of A rows where the
     kernel runs that form at F (``sizes``: SPLIT_FFT_SIZES for the exact
-    kernels, SPEED_SPLIT_SIZES for the speed kernels), else (None, 0).  The
+    pilots, SPEED_SPLIT_SIZES for the speed kernels), else (None, 0).  The
     scratch lives until the caller's last reference goes; the allocator
     gives it to no later work of the stream before the kernels are done."""
     if f not in sizes:
         return None, 0
     chunk = fft_plan.split_chunk(items, a, f)
     return torch.empty((2, chunk, a, f), dtype=torch.float32, device=dev), chunk
+
+
+def _split_ring(items: int, a: int, f: int, estimate, dev: torch.device
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], int, int]:
+    """(ring [2, slots, A, F] float32, counters [1 + 2 items] int32 zeroed,
+    slots, lag) of the exact data kernels' one-launch split form over
+    ``items`` symbols of A rows (``fft_plan.split_ring``: a ring of at most
+    SPLIT_RING_BYTES, which L2 holds; the counters are the launch's ticket
+    and each symbol's column tiles and row tiles done), where the kernel
+    runs it at F (16384, 32768), else (None, None, 0, 0).  The row tiles
+    copy the ``estimate`` tensors (h's planes and the gains, inv or hsqrd)
+    in 16-byte pieces: each must start 16-byte aligned.  As
+    ``_split_scratch``, the tensors live until the caller's last reference
+    goes, and the stream orders later work after the kernel."""
+    if f not in SPLIT_FFT_SIZES:
+        return None, None, 0, 0
+    if any(t.data_ptr() % 16 for t in estimate):
+        raise ValueError("the exact kernels at F = 16384 and 32768 copy the estimate in "
+                         "16-byte pieces: its planes and gains must start 16-byte aligned")
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else fft_plan.H100_SMS)
+    slots, lag = fft_plan.split_ring(items, a, f, sms)
+    ring = torch.empty((2, slots, a, f), dtype=torch.float32, device=dev)
+    counters = torch.zeros(1 + 2 * items, dtype=torch.int32, device=dev)
+    return ring, counters, slots, lag
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,23 +1,28 @@
 """Device time of the kernels at the large-F geometry, kernel by kernel, for
 comparing two trees of the port (or two chunk sizes) on one card.
 
-  python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N] [--pilots]
+  python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N] [--ring-mb M]
+      [--pilots] [--antennas A]
 
-On one 16 x F x 100-symbol frame (f32 rows, and the same rows as int16) at
+On one A x F x 100-symbol frame (A = 16 unless ``--antennas``) (f32 rows, and the same rows as int16) at
 F = 8192, 16384 and 32768: ``fused_pipeline`` exact (the register FFT at
-8192; the split form's column pass and ``fft_mrc_rows_kernel`` above) and
-``exact=False`` (the column pass and ``speed_rows_kernel``), ``fused_demod``
-and the pilots (exact, its sum variant, bf16; the split form's column pass
-and ``pilot_ls_rows_kernel`` or ``pilot_rows_kernel``), each time the sum
-of its kernels, each kernel's time and the column pass's and the row
-pass's shares (torch.profiler device time, the mean over n calls of a
-trace opened with spin kernels that are left out), and ``torch.fft.fft``
-over the pilot's 16 rows beside the pilots.  ``--pilots`` times the pilots
-alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768 with
-its clusters capped at 1, 2, 4 and 8 blocks (``fft_plan.split_pilot_clusters``
-in place of the plan's choice) and nothing else.  ``--chunk N`` caps the
-split form's symbols a chunk at N in place of ``fft_plan.split_chunk``'s
-choice.  It
+8192; above it one launch of ``fft_mrc_ring_kernel``, the column and row
+tiles of the split form on a ring of L2-resident symbol slots, beside the
+zeroing of its counters) and ``exact=False`` (the column pass and
+``speed_rows_kernel``), ``fused_demod`` (``mrc_demod_ring_kernel`` above
+8192) and the pilots (exact, its sum variant, bf16; the split form's column
+pass and ``pilot_ls_rows_kernel`` or ``pilot_rows_kernel``), each time the
+sum of its kernels, each kernel's time and, where a separate column pass
+ran, its and the row pass's shares (torch.profiler device time, the mean
+over n calls of a trace opened with spin kernels that are left out), and
+``torch.fft.fft`` over the same rows beside each frame and pilot.
+``--pilots`` times the pilots alone.  ``--clusters`` times the exact pilot
+at F = 16384 and 32768 with its clusters capped at 1, 2, 4 and 8 blocks
+(``fft_plan.split_pilot_clusters`` in place of the plan's choice) and
+nothing else.  ``--chunk N`` caps the chunked split form's symbols (frames)
+a chunk at N in place of ``fft_plan.split_chunk``'s choice: it reaches the
+pilots and the bf16 kernels only.  ``--ring-mb M`` sizes the exact data
+kernels' ring to M MiB in place of ``fft_plan.SPLIT_RING_BYTES``.  It
 imports ``ofdm_ls_mrc_tpu_torch`` by absolute name, so
 ``PYTHONPATH=<another checkout>`` times that checkout's package with the
 same calls: two trees in one call on the same card compare in the order
@@ -101,8 +106,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chunk", type=int, default=0,
-                    help="symbols a chunk of the split form, at most (default: split_chunk)")
+                    help="symbols (frames) a chunk of the chunked split form, at most: the "
+                         "pilots and the bf16 kernels (default: split_chunk)")
+    ap.add_argument("--ring-mb", type=int, default=0,
+                    help="MiB of the exact data kernels' ring of symbol slots "
+                         "(default: fft_plan.SPLIT_RING_BYTES)")
     ap.add_argument("--pilots", action="store_true", help="time the pilots alone")
+    ap.add_argument("--antennas", type=int, default=ANTENNAS,
+                    help=f"antennas of the frame (default {ANTENNAS})")
     ap.add_argument("--clusters", action="store_true",
                     help="time the exact split pilot at each cluster bound")
     args = ap.parse_args()
@@ -112,18 +123,20 @@ def main() -> int:
     if args.chunk:
         plain_chunk = fft_plan.split_chunk
         fft_plan.split_chunk = lambda items, a, f: min(plain_chunk(items, a, f), args.chunk)
+    if args.ring_mb:
+        fft_plan.SPLIT_RING_BYTES = args.ring_mb << 20
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    print(f"package {ofdm_ls_mrc_tpu_torch.__file__}, chunk {args.chunk or 'split_chunk'}"
-          f"  [{card}]")
+    print(f"package {ofdm_ls_mrc_tpu_torch.__file__}, {args.antennas} antennas, chunk "
+          f"{args.chunk or 'split_chunk'}, ring {args.ring_mb or 'SPLIT_RING_BYTES'}  [{card}]")
     if args.clusters:
         return cluster_bounds(dev, card)
     res = {}
     for f in SIZES:
         rng = np.random.default_rng(f)
-        z = 0.1 * (rng.standard_normal((SYMBOLS, ANTENNAS, f))
-                   + 1j * rng.standard_normal((SYMBOLS, ANTENNAS, f)))
+        z = 0.1 * (rng.standard_normal((SYMBOLS, args.antennas, f))
+                   + 1j * rng.standard_normal((SYMBOLS, args.antennas, f)))
         y = CArray.from_numpy(z.astype(np.complex64), dev)
         del z
         y16 = CArray(*(torch.round(t * 32767).to(torch.int16) for t in (y.re, y.im)))
@@ -131,12 +144,14 @@ def main() -> int:
         h, inv = pipe.estimate_pilot_plain(y[0], x)
         hc, hs = h.conj(), 1 / inv
         pilot_c = torch.complex(y.re[0], y.im[0])
+        data_c = None if args.pilots else torch.complex(y.re[1:], y.im[1:])
         sides = {} if args.pilots else {
             f"frame exact F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv),
             f"frame exact int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv),
             f"frame bf16 F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv, exact=False),
             f"frame bf16 int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv, exact=False),
             f"mrc_demod F={f}": lambda: fused_mrc.fused_demod(y[1:], hc, hs),
+            f"torch.fft.fft frame rows F={f}": lambda: torch.fft.fft(data_c, dim=-1),
         }
         sides.update({
             f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
@@ -151,10 +166,12 @@ def main() -> int:
                               for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
             print(f"{label}: {res[label]['us']:.1f} us device ({parts}){shares(split)}  [{card}]",
                   flush=True)
-        del y, y16, h, inv, hc, hs, pilot_c
+        del y, y16, h, inv, hc, hs, pilot_c, data_c
         torch.cuda.empty_cache()
     print(json.dumps({"package": ofdm_ls_mrc_tpu_torch.__file__, "card": card,
-                      "chunk": args.chunk or None, "pilots_only": args.pilots, "us": res}))
+                      "antennas": args.antennas, "chunk": args.chunk or None,
+                      "ring_mb": args.ring_mb or None,
+                      "pilots_only": args.pilots, "us": res}))
     return 0
 
 

@@ -566,6 +566,59 @@ def test_large_fft_wrappers_raise_past_32768(dev):
         fused_mrc.fused_demod(frame[1:], h.conj(), 1 / inv)
 
 
+@pytest.mark.parametrize("f", fft_plan.SPLIT_FFT_SIZES)
+def test_ring_entries_refuse_a_schedule_they_cannot_run(dev, f):
+    """ofdm_fft_mrc and ofdm_mrc_demod at F = 16384 and 32768 run on the ring
+    of ``fft_plan.split_ring``: the tightest ring (2 slots, lag 1, over 12
+    symbols, each slot rewritten five times in the launch) matches the plain
+    version; a lag of 0, a lag past the symbols, a lag as large as the
+    slots where a slot is reused, or no ring or counters is
+    cudaErrorInvalidValue (1), not a launch."""
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    a, s = 4, 12
+    frame, pilot = frame_on(dev, f, a, s + 1, 0, "f32", seed=7)
+    h, inv = pipe.estimate_pilot_plain(frame[0], ls.pad_pilot(pilot, dev))
+    hc, hs = CArray(h.re.contiguous(), (-h.im).contiguous()), (1 / inv).contiguous()
+    y = frame[1:]
+    st = y.re.stride()
+    tw = fft_plan.split_tables(f, False, dev)
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    want = (pipe.fused_pipeline_plain(y, h, inv).to_numpy(),
+            fused_mrc.fused_demod_plain(y, hc, hs).to_numpy()[:, 1:])
+
+    def run(slots, lag, ring=True, counters=True):
+        out = CArray(torch.empty((s, f - 1), device=dev), torch.empty((s, f - 1), device=dev))
+        eq = CArray(torch.empty((s, f), device=dev), torch.empty((s, f), device=dev))
+        r = torch.empty((2, max(slots, 1), a, f), device=dev) if ring else None
+        errs = []
+        for call in ("fft_mrc", "mrc_demod"):
+            c = torch.zeros(1 + 2 * s, dtype=torch.int32, device=dev) if counters else None
+            ptrs = (None if r is None else r.data_ptr(), slots, lag,
+                    None if c is None else c.data_ptr(), stream)
+            if call == "fft_mrc":
+                errs.append(lib.ofdm_fft_mrc(
+                    y.re.data_ptr(), y.im.data_ptr(), 0, 1, 0, st[0], st[1], 1.0, 1, s, a, f,
+                    h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(),
+                    out.re.data_ptr(), out.im.data_ptr(), *ptrs))
+            else:
+                errs.append(lib.ofdm_mrc_demod(
+                    y.re.data_ptr(), y.im.data_ptr(), 0, 1, st[0], st[1], 1.0, s, a, f,
+                    hc.re.data_ptr(), hc.im.data_ptr(), hs.data_ptr(), tw.data_ptr(),
+                    eq.re.data_ptr(), eq.im.data_ptr(), *ptrs))
+        torch.cuda.synchronize()
+        return errs, out.to_numpy(), eq.to_numpy()[:, 1:]
+
+    errs, out, eq = run(2, 1)
+    assert errs == [0, 0]
+    assert max_rel(out, want[0]) < TOL and max_rel(eq, want[1]) < TOL
+    for bad in ((2, 0), (2, 2), (2, s + 1), (0, 1)):
+        assert run(*bad)[0] == [1, 1], bad
+    assert run(2, 1, ring=False)[0] == [1, 1]
+    assert run(2, 1, counters=False)[0] == [1, 1]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     frame, pilot = frame_on(dev, 256, 2, 3, 0, "f32")
     x_full = ls.pad_pilot(pilot, dev)

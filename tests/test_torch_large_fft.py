@@ -274,7 +274,7 @@ def test_column_twiddles_by_recurrence(f, int16):
     rng = np.random.default_rng(f + 1)
     x = rng.standard_normal(f) + 1j * rng.standard_normal(f)
     assert max_rel(emulate_split(x), np.fft.fft(x)) < 2e-6
-    src = (CSRC / "fft_split.cu").read_text()
+    src = (CSRC / "fft_split.cuh").read_text()   # column_tile, every caller's column pass
     assert "fw[1] = __ldg(four + T * kN2 + i2);" in src and "w = cmul(w, step);" in src
 
 
@@ -310,7 +310,7 @@ def test_split_constants_match_the_header():
     assert "g = (team.id & 3) + 4 * (w & 1);" in text and "p = w >> 1;" in text
     assert "return 4 * (2 * p + (g >> 2)) + (g & 3);" in text
     assert "return wfft::Geo<N1>::kTwiddles + RowGeo::kTwiddles;" in text
-    col = (CSRC / "fft_split.cu").read_text()
+    col = text   # the column tile's geometry, shared by the column pass and the ring
     assert ("return 2 * wfft::Geo<N1>::kPlane + (columns<N1>() >= 32 ? 1 : 2);"
             in col)                                                  # split_column_stride
     assert "return kColumnThreads / wfft::Geo<N1>::T;" in col   # split_columns
@@ -594,10 +594,11 @@ def test_speed_rows_mirror_reproduces_the_plain_versions(f, a, dtype):
 
 @pytest.mark.parametrize("f", SIZES)
 def test_split_scratch_and_chunks(f):
-    """The wrappers' scratch: [2, chunk, A, F] where the kernel runs the
-    split form at F (the exact kernels at 16384 and 32768, the speed kernels
-    from 8192), as many symbols a chunk as 512 MB holds, at least one, never
-    more symbols than there are."""
+    """The chunked scratch: [2, chunk, A, F] where the kernel runs the
+    chunked split form at F (the exact pilots at 16384 and 32768, the speed
+    kernels from 8192; the exact data kernels take the ring,
+    tests/test_torch_split_ring.py), as many symbols a chunk as 512 MB holds,
+    at least one, never more symbols than there are."""
     for sizes in (fp.SPLIT_FFT_SIZES, fp.SPEED_SPLIT_SIZES):
         scratch, chunk = pipe._split_scratch(100, 16, f, sizes, torch.device("cpu"))
         if f not in sizes:
