@@ -168,17 +168,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1.06 GB each); each kernel's device time on the frame beside its plain
    version, torch.fft.fft of its rows and its bound (3.35 TB/s and the
    measured io floor), the capture's per frame, and the ptxas lines of
-   every new instantiation (34, the ring kernels' among them); at 16384
-   and 32768 the ring legs: fft_mrc and mrc_demod, each one launch a call
-   on its ring of L2-resident symbol slots, against their plain versions
-   below 2e-5 at 16 and 64 antennas, f32 rows with the 72 F / 1024 prefix
-   and int16 rows, a streamed symbol (S = 1) and full frames (fft_mrc over
-   K = 2 frames of 100 symbols), each leg twice back to back with the
-   counts set to 0 before each; the three pilots on a 64-antenna pilot
-   (f32 and int16) against their plain versions; for each pilot at each F one line with its
-   time, its column-pass and row-pass times, its parent form's time
-   (PERF.md, the kernel table), torch.fft.fft's, its bound and its ptxas
-   lines; then
+   every new instantiation (35, the ring kernels' and the 8192 pilot's
+   among them); the ring legs: at 16384 and 32768 fft_mrc and mrc_demod,
+   at 8192 to 32768 fft_mrc_bf16, each one launch a call on its ring of
+   symbol slots, against their plain versions (below 2e-5; the bf16 one by
+   phase 14's criteria) at 16 and 64 antennas, f32 rows with the 72 F /
+   1024 prefix and int16 rows, a streamed symbol (S = 1) and full frames
+   (fft_mrc and fft_mrc_bf16 over K = 2 frames of 100 symbols), each leg
+   twice back to back with the counts set to 0 before each; the three
+   pilots on a 64-antenna pilot (f32 and int16) against their plain
+   versions; for each pilot at each F one line with its time, its
+   column-pass and row-pass times (at 8192 the exact pilot is one kernel,
+   a cluster per antenna row), its parent form's time (PERF.md, the kernel
+   table), torch.fft.fft's, its bound and its ptxas lines; then
    ``demod_app --fft-size 8192
    --sc16-native``, exact and ``--kernel-precision bf16``, whole frame on a
    ring of 4 sc16 frames (every index line clean, 4/4 launches).
@@ -324,12 +326,14 @@ LARGE_KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 LARGE_REPS = 5               # calls of each timing at phase 15's sizes
 WIDE_PILOT_ANTENNAS = 64     # phase 15 holds the pilots at this width too
-# The pilots' parent form (one launch of N1 / K1 blocks over every antenna),
-# device us of one 16 x F f32 pilot as PERF.md's kernel table records it
-# (phase 15 on the parent form).
-LARGE_PILOT_PARENT_US = {"pilot_ls": {8192: 12.63, 16384: 23.09, 32768: 24.29},
-                         "pilot_ls_sum": {8192: 12.76, 16384: 23.02, 32768: 25.59},
-                         "pilot_ls_bf16": {8192: 78.38, 16384: 81.51, 32768: 82.94}}
+# The pilots' parent forms, device us of one 16 x F f32 pilot as PERF.md's
+# kernel table records the tree before the 8192 pilot's cluster per antenna
+# row (tools/split_compare.py, parent against this form in turns on one
+# NVIDIA H100 80GB HBM3, 700 W; the forms at 16384 and 32768 are the same
+# kernels in both trees).
+LARGE_PILOT_PARENT_US = {"pilot_ls": {8192: 12.9, 16384: 12.1, 32768: 16.6},
+                         "pilot_ls_sum": {8192: 12.9, 16384: 12.0, 32768: 17.3},
+                         "pilot_ls_bf16": {8192: 15.4, 16384: 17.2, 32768: 17.7}}
 LARGE_APP_FFT, LARGE_APP_FRAMES = 8192, 4   # phase 15's demod_app run
 # Phase 16, the tools and examples of the port.
 TOOL_CALLS = 20              # demod_frame calls in the profiling leg's trace
@@ -1560,12 +1564,21 @@ def speed_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, 
 def large_ptxas_lines(report: str):
     """Registers, spills and the launch's dynamic shared memory of every
     instantiation of phase 15's geometry from nvcc's -Xptxas -v report: the
-    exact kernels at F = 8192 (the register FFT), the split form's column
-    pass and row passes (F = 16384 and 32768 exact, 8192-32768 bf16)."""
+    exact data kernels at F = 8192 (the register FFT), the exact pilot at
+    8192 (a cluster per antenna row), the split form's column pass and the
+    pilots' row passes (F = 16384 and 32768 exact, 8192-32768 bf16), the
+    data kernels' rings (exact 16384 and 32768, bf16 8192-32768)."""
     from ofdm_ls_mrc_tpu_torch.ops import fft_plan
 
-    yield from ptxas_lines(report, (8192,), ("fft_mrc", "mrc_demod", "pilot_ls"), ANTENNAS)
+    yield from ptxas_lines(report, (8192,), ("fft_mrc", "mrc_demod"), ANTENNAS)
     tail = r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers"
+    for t, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+pilot_ls_row_kernelI(\w)E" + tail, report, re.S):
+        plan = fft_plan.pilot_plan(ANTENNAS, 8192)
+        yield (f"ptxas pilot_ls_row<8192, {'int16' if t == 's' else 'float'}> (a cluster per "
+               f"antenna row): {regs} registers, {spill} B spilled, {plan.smem_bytes} B dynamic "
+               f"shared memory, {plan.threads} threads a block, a cluster of {plan.clusters} "
+               f"for each of the {ANTENNAS} rows")
     for n1, spill, regs in re.findall(
             r"Compiling entry function '_ZN4ofdm\d+pilot_ls_rows_kernelILi(\d+)EE" + tail,
             report, re.S):
@@ -1581,42 +1594,51 @@ def large_ptxas_lines(report: str):
         yield (f"ptxas column_pass<n1 {n1}, {'int16' if t == 's' else 'float'}>: {regs} "
                f"registers, {spill} B spilled, {fft_plan.split_column_smem_bytes(int(n1))} B "
                f"dynamic shared memory, {fft_plan.SPLIT_COLUMN_THREADS} threads a block")
-    for name, n1, spill, regs in re.findall(
-            r"Compiling entry function '_ZN4ofdm5speed\d+(speed|pilot)_rows_kernelILi(\d+)EE"
-            + tail, report, re.S):
+    for n1, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm5speed\d+pilot_rows_kernelILi(\d+)EE" + tail,
+            report, re.S):
         f = 128 * int(n1)
-        pilot = name == "pilot"
-        cluster = (f", a cluster of {fft_plan.speed_cluster(ANTENNAS, f, True)} for 32 bins k1 "
-                   f"({ANTENNAS} antennas)" if pilot else "")
-        threads = fft_plan.SPEED_PILOT_ROWS_THREADS if pilot else fft_plan.SPEED_ROWS_THREADS
-        yield (f"ptxas {name}_rows<F {f}, {'pilot_ls_bf16' if pilot else 'fft_mrc_bf16'}>"
-               f": {regs} registers, {spill} B spilled, "
-               f"{fft_plan.speed_smem_bytes(f, pilot)} B dynamic shared memory, "
-               f"{threads} threads a block{cluster}")
+        yield (f"ptxas pilot_rows<F {f}, pilot_ls_bf16>: {regs} registers, {spill} B spilled, "
+               f"{fft_plan.speed_smem_bytes(f, True)} B dynamic shared memory, "
+               f"{fft_plan.SPEED_PILOT_ROWS_THREADS} threads a block, a cluster of "
+               f"{fft_plan.speed_cluster(ANTENNAS, f, True)} for 32 bins k1 ({ANTENNAS} antennas)")
 
 
 def ring_ptxas_lines(report: str):
-    """Registers, spills and shared memory of the exact data kernels' ring
-    form (fft_mrc_ring_kernel, mrc_demod_ring_kernel: one persistent launch a
-    call, F = 16384 and 32768, float32 and int16 rows)."""
+    """Registers, spills and shared memory of the data kernels' ring form
+    (one persistent launch a call, float32 and int16 rows):
+    fft_mrc_ring_kernel and mrc_demod_ring_kernel at F = 16384 and 32768,
+    fft_mrc_bf16_ring_kernel at 8192 to 32768."""
     from ofdm_ls_mrc_tpu_torch.ops import fft_plan
 
+    tail = r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers"
     for name, n1, t, spill, regs in re.findall(
             r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_ring_kernelILi(\d+)E(\w)EE"
-            r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers", report, re.S):
+            + tail, report, re.S):
         yield (f"ptxas {name}_ring<F {128 * int(n1)}, {'int16' if t == 's' else 'float'}> "
                f"(one launch, column and row tiles): {regs} registers, {spill} B spilled, "
                f"{fft_plan.split_ring_smem_bytes(128 * int(n1))} B dynamic shared memory, "
                f"{fft_plan.SPLIT_RING_BLOCKS} blocks of 256 threads an SM")
+    for n1, t, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm5speed\d+fft_mrc_bf16_ring_kernelILi(\d+)E(\w)EE"
+            + tail, report, re.S):
+        yield (f"ptxas fft_mrc_bf16_ring<F {128 * int(n1)}, {'int16' if t == 's' else 'float'}> "
+               f"(one launch, column tiles and bf16 row tiles of {fft_plan.SPEED_RING_K1} bins "
+               f"k1): {regs} registers, {spill} B spilled, "
+               f"{fft_plan.speed_ring_smem_bytes(128 * int(n1))} B dynamic shared memory, "
+               f"{fft_plan.SPLIT_RING_BLOCKS} blocks of 256 threads an SM")
 
 
 def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
-    """Phase 15's ring legs at F (16384, 32768): fft_mrc and mrc_demod, one
-    launch a call, against their plain versions below KERNEL_TOL at 16 and
-    64 antennas, f32 rows with the 72 F / 1024 prefix and int16 rows, S = 1
-    and full frames (fft_mrc: K = 2 frames of 100 symbols); each leg runs
-    twice back to back, the counts set to 0 before each run.  Returns the
-    legs' max-rel, by label."""
+    """Phase 15's ring legs at F: the exact fft_mrc and mrc_demod (F = 16384,
+    32768) against their plain versions below KERNEL_TOL, and the bf16
+    fft_mrc_bf16 (F = 8192 to 32768) against fused_pipeline_speed_plain at
+    the speed criterion (EVM against it SPEED_GAP_DB below the plain
+    version's against the exact one, max-rel < SPEED_REL), each one launch a
+    call, at 16 and 64 antennas, f32 rows with the 72 F / 1024 prefix and
+    int16 rows, S = 1 and full frames (K = 2 frames of 100 symbols; the exact
+    mrc_demod one frame); each leg runs twice back to back, the counts set
+    to 0 before each run.  Returns the legs' max-rel, by label."""
     import torch
 
     from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc
@@ -1624,6 +1646,7 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
     from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 
     cp = 72 * f // 1024
+    exact = f in pipe.SPLIT_FFT_SIZES
     out = {}
     for a in (ANTENNAS, WIDE_PILOT_ANTENNAS):
         g = torch.Generator(device=dev).manual_seed(f + a)
@@ -1639,24 +1662,43 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
         hc = CArray(hr[0][0].contiguous(), (-hr[1][0]).contiguous())
         hs = 1.0 / inv[0]
         for label, y in rows.items():
-            legs = {
-                "fft_mrc full frames": (
-                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv),
-                    lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv), slice(None)),
-                "fft_mrc S=1": (
-                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0]),
-                    lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0]), slice(None)),
-                "mrc_demod full frame": (
-                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[0, 1:], hc, hs),
-                    lambda y=y: fused_mrc.fused_demod_plain(y[0, 1:], hc, hs), slice(1, None)),
-                "mrc_demod S=1": (
-                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[1, 1:2], hc, hs),
-                    lambda y=y: fused_mrc.fused_demod_plain(y[1, 1:2], hc, hs), slice(1, None)),
-            }
-            for leg, (name, kernel, plain, bins) in legs.items():
+            legs = {}
+            if exact:
+                legs.update({
+                    "fft_mrc full frames": (
+                        "fft_mrc", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv),
+                        lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv), slice(None), None),
+                    "fft_mrc S=1": (
+                        "fft_mrc", lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0]),
+                        lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0]),
+                        slice(None), None),
+                    "mrc_demod full frame": (
+                        "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[0, 1:], hc, hs),
+                        lambda y=y: fused_mrc.fused_demod_plain(y[0, 1:], hc, hs),
+                        slice(1, None), None),
+                    "mrc_demod S=1": (
+                        "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[1, 1:2], hc, hs),
+                        lambda y=y: fused_mrc.fused_demod_plain(y[1, 1:2], hc, hs),
+                        slice(1, None), None),
+                })
+            legs.update({
+                "fft_mrc_bf16 full frames": (
+                    "fft_mrc_bf16", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv, exact=False),
+                    lambda y=y: pipe.fused_pipeline_speed_plain(y[:, 1:], h, inv), slice(None),
+                    lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv)),
+                "fft_mrc_bf16 S=1": (
+                    "fft_mrc_bf16",
+                    lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0], exact=False),
+                    lambda y=y: pipe.fused_pipeline_speed_plain(y[0, 1:2], h[0], inv[0]),
+                    slice(None), lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0])),
+            })
+            for leg, (name, kernel, plain, bins, exact_fn) in legs.items():
                 want = plain().to_numpy()[..., bins]
+                e_pe = None if exact_fn is None else evm_db(want, exact_fn().to_numpy()[..., bins])
                 items = (2 * (SYMBOLS - 1) if "frames" in leg else
                          SYMBOLS - 1 if "frame" in leg else 1)
+                k1 = fft_plan.SPEED_RING_K1 if name == "fft_mrc_bf16" else fft_plan.SPLIT_K1
+                ring = fft_plan.split_ring(items, a, f, k1=k1)
                 for run in (1, 2):
                     torch.cuda.synchronize()
                     reset_counts()
@@ -1667,9 +1709,17 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
                     errs[name] = max(errs[name], max_abs(got, want))
                     key = f"{name} F={f} {a}x{label} {leg} run {run}"
                     out[key] = rel
-                    print(f"ring {key}: max-rel {rel:.3e}, launches {n[name]}, ring "
-                          f"(slots, lag) {fft_plan.split_ring(items, a, f)}  [{card}]")
-                    require(rel < KERNEL_TOL and n[name] == 1 and sum(n.values()) == 1,
+                    if e_pe is None:
+                        print(f"ring {key}: max-rel {rel:.3e}, launches {n[name]}, ring "
+                              f"(slots, lag) {ring}  [{card}]")
+                        ok = rel < KERNEL_TOL
+                    else:
+                        e_kp = evm_db(got, want)
+                        print(f"ring {key}: EVM vs plain {e_kp:.2f} dB, plain vs exact "
+                              f"{e_pe:.2f} dB, max-rel {rel:.3e}, launches {n[name]}, ring "
+                              f"(slots, lag) {ring}  [{card}]")
+                        ok = e_kp <= e_pe - SPEED_GAP_DB and rel < SPEED_REL
+                    require(ok and n[name] == 1 and sum(n.values()) == 1,
                             f"ring {key}: max-rel {rel:.3e}, launches {n}")
         del rows, h, hr, inv, hc, hs
         torch.cuda.empty_cache()
@@ -1677,14 +1727,14 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
 
 
 def pilot_ptxas(lines, name: str, f: int) -> list:
-    """Phase 15's ptxas lines of one pilot at F: its kernel (the register
-    plan at 8192, else the row pass) and, where it runs one, the column
-    pass."""
+    """Phase 15's ptxas lines of one pilot at F: its kernel (at 8192 the
+    cluster per antenna row, else the row pass) and, where it runs one, the
+    column pass."""
     column = f"column_pass<n1 {f // 128}, float>"
     if name == "pilot_ls_bf16":
         keys = (f"pilot_rows<F {f},", column)
     elif f == 8192:
-        keys = ("pilot_ls<8192, float, cp.async loads>",)
+        keys = ("pilot_ls_row<8192, float>",)
     else:
         keys = (f"pilot_ls_rows<F {f}>", column)
     return [ln for ln in lines if any(k in ln for k in keys)]
@@ -1709,7 +1759,7 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
     t_phase = time.perf_counter()
     lines = list(large_ptxas_lines(report))
     print("\n".join(lines))
-    require(len(lines) == 34, f"ptxas report: {len(lines)} phase-15 instantiations, want 34")
+    require(len(lines) == 35, f"ptxas report: {len(lines)} phase-15 instantiations, want 35")
     rec, records = {"ptxas": lines}, []
     s = SYMBOLS - 1
 
@@ -1824,9 +1874,9 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                     for t in (wide.re, wide.im))))):
                 hold_pilots(f"{WIDE_PILOT_ANTENNAS}x{f} {label} pilot", rx.x_full, rows)
             del wide
-            if f in pipe.SPLIT_FFT_SIZES:  # the data kernels' one-launch ring form
-                r["ring legs"] = ring_legs(dev, f, card, errs, reset_counts, counts)
-            if f == 8192:  # the register FFT's element-by-element loads (an odd prefix)
+            # The data kernels' one-launch ring (exact from 16384, bf16 from 8192).
+            r["ring legs"] = ring_legs(dev, f, card, errs, reset_counts, counts)
+            if f == 8192:  # element loads at an odd prefix: the data kernels' and the pilot's
                 small = CArray(*(torch.round(t[:6] * 32767).clamp(-32768, 32767)
                                  .to(torch.int16)[..., 1:1 + f] for t in (frame.re, frame.im)))
                 hold("16x8192x6 int16 cp 1 (element loads)", rx.x_full, small[0], small[1:],
@@ -1992,9 +2042,10 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                     "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {cp}, one frame",
                     **({"pass_split_ms": passes} if passes else {}),
                     **({"ring": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cuh ring_loop"}
-                       if f in pipe.SPLIT_FFT_SIZES and name in ("fft_mrc", "mrc_demod") else
+                       if (f in pipe.SPLIT_FFT_SIZES and name in ("fft_mrc", "mrc_demod"))
+                       or name == "fft_mrc_bf16" else
                        {"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}
-                       if f in pipe.SPLIT_FFT_SIZES or name.endswith("_bf16") else {})})
+                       if f in pipe.SPLIT_FFT_SIZES or name == "pilot_ls_bf16" else {})})
             del pilot_c, data_c
             cap_bytes = (one_frame_work("fft_mrc", ANTENNAS, f, s)[0] - s * ANTENNAS * f * 4
                          + ANTENNAS * f * 4 + f * 12)   # sc16 rows in, the pilot's estimate

@@ -2,7 +2,7 @@
 // by tools/dma_probe.py warp_burn): shared-memory addresses, bf16 packing,
 // ldmatrix and mma.sync.m16n8k16 (bf16 in, f32 accumulate).  The speed
 // kernels (fft_mrc_bf16.cu) run their product on wgmma (wgmma.cuh) and use
-// smem_u32 alone from here.
+// smem_u32 and pack_bf16 (the bf16 ring's tile stores) from here.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -157,9 +157,11 @@ fft_mrc_ring_kernel(const split::RingArgs p) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int P = split::data_teams(p.A);
-  split::ring_loop<N1, E>(p, smem, [&](int item, int q, const float* b_re, const float* b_im,
-                                       const float2* row_tw, uint64_t policy, auto gate,
-                                       auto done) {
+  float2* const tw = reinterpret_cast<float2*>(smem + split::ring_gain_offset() +
+                                             split::kGainFloats);
+  split::ring_loop<N1, E, split::kK1>(
+      p, smem, tw, [&](long long, int item, int q, const float* b_re, const float* b_im,
+                       const float2* row_tw, uint64_t policy, auto gate, auto done) {
     const int k = item / p.S;
     const int k1_0 = q * split::kK1;
     const long long hk = static_cast<long long>(k) * p.A * F;

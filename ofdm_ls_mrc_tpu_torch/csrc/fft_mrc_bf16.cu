@@ -83,13 +83,16 @@
 // tiles, two row stages, two h stages, barriers); pilot 145,488 B at F =
 // 1024, 182,352 B at 4096 (W, two tiles, h staging, X and 1/|X|^2).
 //
-// F = 8192 to 32768 (n1 = 64 to 256): the split form's column pass
-// (fft_split.cu) for stage 1 and a row pass (near the end of this file) for
-// stage 2, one warpgroup a block, W and one tile: speed_rows_kernel for the
-// data path (82,944 B; ptxas 255 registers, no spills), pilot_rows_kernel
-// for the pilot, its antennas spread over a cluster that takes W by one TMA
-// multicast, two warpgroups a block (201,744 B: a tile and a row stage each,
-// X).
+// F = 8192 to 32768 (n1 = 64 to 256): stage 1 is the split form's column
+// pass (fft_split.cuh) and stage 2 a row pass of 32 bins k1 (near the end of
+// this file).  The data path is one persistent launch,
+// fft_mrc_bf16_ring_kernel, on the exact kernels' ring of L2-resident symbol
+// slots (fft_split.cuh ring_loop): column tiles and bf16 row tiles, a
+// loading and a multiplying warpgroup a block, W's image resident, two
+// blocks an SM (105,512 B at 32768).  The pilot runs the column pass into a
+// scratch and pilot_rows_kernel, its antennas spread over a cluster that
+// takes W by one TMA multicast, two warpgroups a block (201,744 B: a tile
+// and a row stage each, X).
 //
 // What it leaves for later: below F = 8192 W is copied by every block, not
 // multicast to the cluster by TMA; rows by cp.async, not TMA tensor copies; warpgroup 0
@@ -98,6 +101,7 @@
 // chain (W copy, one chunk, cluster reduce) is latency-bound.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its encoder's types; no libcuda link
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -829,39 +833,33 @@ __global__ void __launch_bounds__(kThreads<true>, 1) pilot_ls_bf16_kernel(const 
 //
 // A thread's column of n1 values no longer fits stage 1's registers (the
 // chunk layout above gives each thread v[32 / n1][n1]: no antenna at all past
-// n1 = 32).  Stage 1 is the split form's column pass (fft_split.cu: the
+// n1 = 32).  Stage 1 is the split form's column pass (fft_split.cuh: the
 // n1-point DFT in float32 and the twiddle, the sc16 scale folded into it, into
-// a scratch B[a][k1][i2]), and the kernels below are the row pass: a block of
-// one warpgroup takes 32 bins k1 of one symbol (the pilot: frame), k1 = 32 g
-// + q, and for each of its antennas reads B's 32 rows (a chunk of 32 complex
-// rows, r = a n1 + k1, as above), rounds them to bf16 into the tile and runs
-// stage 2 as the same four wgmma quarters against W, the next antenna's rows
-// loading meanwhile.  Its sums over its antennas stay in the registers of the
-// fold.  The data path (speed_rows_kernel: sum C conj(h), h read through L1
-// a quarter ahead) takes every antenna in one block and needs no cluster;
-// what it leaves: one warpgroup does the loads, the bf16 pack, the product
-// and the fold in turn (two blocks an SM), and the scratch costs a write and
-// a read of every sample (PERF.md).  The pilot (pilot_rows_kernel) spreads
-// the antennas over a cluster (below).
+// B[a][k1][i2]), and stage 2 takes 32 bins k1 of one symbol (the pilot:
+// frame), k1 = 32 g + q: for each antenna it rounds B's 32 rows (a chunk of
+// 32 complex rows, r = a n1 + k1, as above) to bf16 into the tile and runs
+// the same four wgmma quarters against W.  The data path
+// (fft_mrc_bf16_ring_kernel, below) runs both on one persistent launch, the
+// exact kernels' ring (fft_split.cuh ring_loop); the pilot runs the column
+// pass into a scratch and then pilot_rows_kernel, its antennas spread over
+// a cluster (below).
 struct RowsParams {
   const float* b_re;       // the column pass's scratch [n, A, n1, 128]
   const float* b_im;
-  long long item0;         // the chunk's first symbol (the pilot: frame)
-  int S, A;                // the pilot: S = 1
-  const float* h_re;       // data: estimate [K, A, F]
-  const float* h_im;
-  const float* inv;        // data: [K, F]
-  const float* x_re;       // pilot: [F] padded pilot, natural order
+  long long item0;         // the chunk's first frame
+  int A;
+  const float* x_re;       // [F] padded pilot, natural order
   const float* x_im;
-  const uint4* w;          // data: [128, 256] bf16 [Wr | Wi]; pilot: the operand's image
-  float* out_re;           // data: [K, S, F-1]; pilot: h [K, A, F]
+  const uint4* w;          // the operand's image (ops/fft_plan.py speed_w_image)
+  float* out_re;           // h [K, A, F]
   float* out_im;
-  float* inv_out;          // pilot: [K, F]
+  float* inv_out;          // [K, F]
 };
 
-constexpr int kRowsK1 = kChunkRows;  // bins k1 of a block
+constexpr int kRowsK1 = kChunkRows;  // bins k1 of a pilot row-pass block, one chunk an antenna
+constexpr int kRingK1 = kChunkRows / 2;  // bins k1 of a bf16 ring row tile: two antennas a chunk
 constexpr int kRowsBytes = kWBytes + kTileBytes + kAlign;
-constexpr int kWPiece = 4096;                       // bytes of one multicast copy of W
+constexpr int kWPiece = 4096;                       // bytes of one copy of W's image
 constexpr int kNatStride = kChunkRows + 1;          // floats a bin k2 of the pilot's sums
 constexpr int kXsStride = kChunkRows + 4;           // floats a bin k2 of the pilot's X staging
 constexpr int kXsBytes = 2 * kN2 * kXsStride * 4;   // 36,864: X / |X|^2, two planes
@@ -870,23 +868,10 @@ constexpr int kXsBytes = 2 * kN2 * kXsStride * 4;   // 36,864: X / |X|^2, two pl
 constexpr int kPilotRowsThreads = 256;
 constexpr int kPilotRowsBytes = kRowsBytes + kTileBytes + kXsBytes + 2 * kRowBytes + 16;
 
-// Stage 1's output for rows k1 = 32 g .. 32 g + 31 of one antenna, column t
-// (b points at row k1 = 32 g of antenna 0), into registers.
-template <int N1>
-__device__ __forceinline__ void load_rows(float (&br)[kChunkRows], float (&bi)[kChunkRows],
-                                          const float* __restrict__ b_re,
-                                          const float* __restrict__ b_im, int a, int t) {
-  const long long rows = static_cast<long long>(a) * N1 * kN2;
-#pragma unroll
-  for (int r = 0; r < kChunkRows; ++r) {
-    br[r] = b_re[rows + r * kN2 + t];
-    bi[r] = b_im[rows + r * kN2 + t];
-  }
-}
-
-// Stage 1's output for rows k1 = 32 g .. 32 g + 31 of one antenna (b as for
-// load_rows) into a row stage [plane][32][128] by 16-byte cp.async, issued
-// by the 128 threads of a warpgroup (t), not waited for.
+// Stage 1's output for rows k1 = 32 g .. 32 g + 31 of one antenna (b points
+// at row k1 = 32 g of antenna 0) into a row stage [plane][32][128] by
+// 16-byte cp.async, issued by the 128 threads of a warpgroup (t), not
+// waited for.
 template <int N1>
 __device__ __forceinline__ void stage_rows(float* stage, const float* __restrict__ b_re,
                                            const float* __restrict__ b_im, int a, int t) {
@@ -910,104 +895,304 @@ __device__ __forceinline__ void write_stage(const float* stage, unsigned char* t
   }
 }
 
-// The rows in registers, rounded to bf16, into the tile (column t).
-__device__ __forceinline__ void write_rows(const float (&br)[kChunkRows],
-                                           const float (&bi)[kChunkRows], unsigned char* tile,
-                                           int t) {
-#pragma unroll
-  for (int r = 0; r < kChunkRows; ++r) {
-    const int m = tile_row(r);
-    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m, t)) =
-        __float2bfloat16_rn(br[r]);
-    *reinterpret_cast<__nv_bfloat16*>(tile + wg::sw128_offset(kTileRows, m + 8, t)) =
-        __float2bfloat16_rn(bi[r]);
+// -- the data path from F = 8192: one persistent launch on the ring ---------------
+//
+// fft_mrc_bf16_ring_kernel runs fft_split.cuh ring_loop with the exact
+// kernels' column tiles (column_load + column_run into a symbol slot, the
+// sc16 scale in the table's four-step twiddles), storing B rounded to bf16
+// (the rounding stage 2 takes anyway: the ring holds half the bytes), and
+// row tiles of kRingK1 = 16 bins k1 of one symbol over every antenna (n1 /
+// 16 a symbol), the bf16 stage 2 in place of the exact row FFT.  A row
+// tile's chunk of 32 complex rows is 16 rows k1 of two antennas (complex
+// row q: antenna 2 b + q / 16, k1_0 + q % 16), so a tile runs A / 2
+// products, and takes them in turn on a ring of two bf16 tiles handed over
+// by "full" and "empty" mbarriers:
+//   - thread 0 copies pair b + 1's rows into tile (b + 1) % 2 by TMA as
+//     soon as the tile is free: the column tiles store a slot with its
+//     planes interleaved by 8 rows (fft_split.cuh slot_row), so an
+//     antenna's 16 rows k1 of both planes are one run of 32 rows in tile
+//     order (re and im rows in alternate groups of 8), a box of 32 rows x
+//     64 bf16 a K half, landing in the 128-byte-swizzled K-major layout
+//     wgmma reads -- no thread loads or packs a row;
+//   - warpgroup w runs quarters 2 w and 2 w + 1 of the pair's product
+//     against W (wgmma.m64n64k16 x 8 each, one after the other) and folds
+//     each quarter's C conj(h) of the thread's antenna into its 16 bins'
+//     sums in registers, each quarter's h loaded one pair ahead of its fold;
+//     after the last pair the two antenna halves' sums meet in shared
+//     memory and the first half stores sum * inv in reference order, as the
+//     exact ring does.
+// (The first forms, 32 bins k1 and one antenna a product: a loading
+// warpgroup beside a multiplying one left the multiplying one all four
+// quarters in 128 registers, 312-352 B spilled, 3.5 us an antenna; both
+// warpgroups loading a half of the next antenna's f32 rows into registers
+// and packing them, ~3 us an antenna.  Their row tiles held a slot 45-60 us
+// and stalled the ring's column tiles: 470-610 us at 8192 on an H100; PERF.md.)
+// W stays in shared memory for the launch: one TMA copy of its image
+// (ops/fft_plan.py speed_w_image, the operand byte for byte) as the block
+// starts, behind the first tiles.  Shared memory (ops/fft_plan.py
+// speed_ring_smem_bytes): the column tile's buffers overlaid on the two
+// tiles, W, the pass twiddles, the barriers: two blocks an SM, as the exact
+// ring.  The slot is handed on (done()) once the last pair's copy has
+// landed.  A row tile takes the block's next ticket as it ends (ring_loop's
+// kLateRowTicket): a ticket held idle behind a row tile stalled the
+// symbol's column tiles and, behind them, its row tiles.  Built with
+// -DOFDM_RING_TRACE, a row tile records thread 0's phase sums in entries 6
+// .. 11 of its ticket (fft_split.cuh): the copies' issue, the wait for a
+// free tile, the wait for a full tile, the products (issue to wait), the
+// folds (with the next pair's h loads), and of the products the second
+// quarter's.
+template <int N1>
+struct RingSmem {
+  static constexpr int kColumn = static_cast<int>(split::column_smem_bytes<N1>());
+  static constexpr int kW = ((kColumn > 2 * kTileBytes ? kColumn : 2 * kTileBytes) + kAlign - 1) /
+                            kAlign * kAlign;
+  static constexpr int kTw = kW + kWBytes;
+  static constexpr int kBar = kTw + split::ring_twiddles<N1>() * 8;
+  static constexpr int kBars = 5;  // full, empty (two each), W in
+  static constexpr int kBytes = kBar + kBars * 8 + kAlign;  // + alignment slack
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Tensor map of the bf16 ring [slots, A, n1 / 8, 2, 8, 128] (fft_split.cuh
+// slot_row) as rows of 128 bf16, a box of 32 rows x 64 bf16 (128 bytes,
+// the 128-byte swizzle): one K half of an antenna's 16 rows k1.  libcuda's
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (nothing links against libcuda).
+__host__ cudaError_t ring_map(CUtensorMap* map, void* ring, int slots, int A, int n1) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint64_t dims[2] = {kN2, 2ull * slots * A * n1};
+  const cuuint64_t strides[1] = {kN2 * 2};
+  const cuuint32_t box[2] = {64, 2 * kRingK1};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ring, dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int N1>
-__global__ void __launch_bounds__(128) speed_rows_kernel(const RowsParams p) {
+// The box of `map` at (column c0, row c1) into shared memory, completed on
+// `bar` as transaction bytes.
+__device__ __forceinline__ void box_copy(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One bf16 row tile on the block's 256 threads (bins k1 = k1_0 .. k1_0 + 15
+// of item `item` in slot `slot`; tile stage (n0 + b) % 2 for pair b): thread
+// 0 copies each pair's tile by TMA one ahead, warpgroup w multiplies and
+// folds quarters 2 w, 2 w + 1, done() once every copy has landed, then eq =
+// sum * inv in reference order (the DC bin dropped).
+template <int N1, typename Done>
+__device__ __forceinline__ void ring_rows(const split::RingArgs& p, const CUtensorMap* map,
+                                          long long item, int k1_0, int n0, int slot,
+                                          unsigned char* tiles, unsigned w_s, uint64_t* full,
+                                          uint64_t* empty, uint64_t* w_in, uint64_t policy,
+                                          long long t, Done done) {
   constexpr int F = N1 * kN2;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* const smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
-  unsigned char* const tile = smem + kWBytes;
-  const unsigned w_s = smem_u32(smem), tile_s = smem_u32(tile);
-  const int t = threadIdx.x;
-  load_w(smem, p.w, t);
-  wfft::cp_async_commit();
-  const long long il = blockIdx.y;
-  const long long item = p.item0 + il;
+  constexpr int kRun = 2 * kRingK1;  // rows of an antenna's run: kRingK1 k1, both planes
+  const int wgi = threadIdx.x >> 7, u = threadIdx.x & 127;
+  const int q = 8 * (u >> 5) + ((u & 31) >> 2);  // the thread's complex row of the tile
+  const int par = q / kRingK1;                    // its antenna of the pair
+  const int t4 = u & 3;
+  const int k1 = k1_0 + q % kRingK1;
   const int k = static_cast<int>(item / p.S);
-  const int q = 8 * (t >> 5) + ((t & 31) >> 2);  // the thread's complex row of a chunk
-  const int t4 = t & 3;
-  const int k1 = kRowsK1 * blockIdx.x + q;
-  const float* const b_re = p.b_re + (il * p.A * N1 + kRowsK1 * blockIdx.x) * kN2;
-  const float* const b_im = p.b_im + (il * p.A * N1 + kRowsK1 * blockIdx.x) * kN2;
-  float sums[32][2];
+  const int pairs = (p.A + 1) / 2;
+  // Row of antenna 0's run (re and im of k1_0 .. k1_0 + 15).
+  const int row0 = static_cast<int>(static_cast<long long>(slot) * p.A * 2 * N1 + 2 * k1_0);
+  float sums[16][2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sums[i][0] = sums[i][1] = 0.0f;
-  float da[32], db[32];
-  wfft::cp_async_wait<0>();
-  fence_proxy_async();  // W, for the tensor cores (published by the first barrier below)
-  // Antenna a + 1's loads are in flight during antenna a's product and fold.
-  float br[kChunkRows], bi[kChunkRows];
-  load_rows<N1>(br, bi, b_re, b_im, 0, t);
-  for (int a = 0; a < p.A; ++a) {
-    __syncthreads();  // every thread's products of the last antenna are done
-    write_rows(br, bi, tile, t);
-    fence_proxy_async();
-    __syncthreads();  // the tile is written
-    issue_quarter(da, tile_s, w_s, 0);
-    issue_quarter(db, tile_s, w_s, 1);
-    if (a + 1 < p.A) load_rows<N1>(br, bi, b_re, b_im, a + 1, t);
-    const long long hrow = (static_cast<long long>(k) * p.A + a) * F;
+  for (int i = 0; i < 16; ++i) sums[i][0] = sums[i][1] = 0.0f;
+  unsigned long long ns_issue = 0, ns_empty = 0, ns_full = 0, ns_product = 0, ns_fold = 0,
+                     ns_second = 0;
+  // Thread 0: pair b's runs into tile stage (n0 + b) % 2 once the tile is
+  // free, a copy an antenna and K half (antenna 2 b + 1's rows at tile row
+  // 32; a pair past A copies one run).
+  auto copy = [&](int b) {
+    const int n = n0 + b, st = n & 1, live = 2 * b + 1 < p.A ? 2 : 1;
+    const unsigned long long c0 = split::ring_now();
+    mbar_wait(empty + st, static_cast<unsigned>((n >> 1) & 1) ^ 1u);
+    const unsigned long long c1 = split::ring_now();
+    mbar_arrive_expect_tx(full + st, live * kTileBytes / 2);
+    for (int i = 0; i < live; ++i) {
 #pragma unroll
-    for (int Q = 0; Q < kQuarters; ++Q) {
-      // The quarter's 8 bins of the thread: h, loaded before the product is
-      // waited for.
-      float pre[8][2];
-#pragma unroll
-      for (int jc = 0; jc < 8; ++jc) {
-        const int bin = N1 * (32 * Q + 8 * (jc >> 1) + 2 * t4 + (jc & 1)) + k1;
-        pre[jc][0] = __ldg(p.h_re + hrow + bin);
-        pre[jc][1] = __ldg(p.h_im + hrow + bin);
+      for (int half = 0; half < 2; ++half) {
+        box_copy(tiles + st * kTileBytes + half * (kTileBytes / 2) + i * kRun * 128, map,
+                 64 * half, row0 + (2 * b + i) * 2 * N1, full + st);
       }
-      if (Q < kQuarters - 1) {
-        wg::wait<1>();
-      } else {
-        wg::wait<0>();
-      }
-      float(&d)[32] = (Q & 1) ? db : da;
+    }
+    ns_empty += c1 - c0;
+    ns_issue += split::ring_now() - c1;
+  };
+  // h of the thread's antenna of pair b at its 8 bins of quarter Q: N1 (32 Q
+  // + 8 j + 2 t4 + cc) + k1 (none past A).
+  auto load_h = [&](float (&h)[8][2], int b, int Q) {
+    const int a = 2 * b + par;
+    if (a >= p.A) return;
+    const long long hrow = (static_cast<long long>(k) * p.A + a) * F + 2 * t4 * N1 + k1;
+#pragma unroll
+    for (int jc = 0; jc < 8; ++jc) {
+      const int off = N1 * (32 * Q + 8 * (jc >> 1) + (jc & 1));
+      h[jc][0] = __ldg(p.h_re + hrow + off);
+      h[jc][1] = __ldg(p.h_im + hrow + off);
+    }
+  };
+  if (threadIdx.x == 0) {
+    // The slot's column tiles stored through the generic proxy; the copies
+    // read it through the async proxy.
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    copy(0);
+  }
+  __syncwarp();  // warp 0 converged again before its products
+  // Each quarter's h one pair ahead of its fold.
+  float hq[2][8][2];
+  load_h(hq[0], 0, 2 * wgi);
+  load_h(hq[1], 0, 2 * wgi + 1);
+  mbar_wait(w_in, 0);  // W has landed (the first row tile; at once after it)
+  for (int b = 0; b < pairs; ++b) {
+    const int n = n0 + b, st = n & 1;
+    const bool live = 2 * b + par < p.A;
+    if (threadIdx.x == 0 && b + 1 < pairs) copy(b + 1);  // tile (b + 1) % 2: pair b - 1 is done
+    __syncwarp();
+    const unsigned tile_s = smem_u32(tiles + st * kTileBytes);
+    const unsigned long long f0 = split::ring_now();
+    mbar_wait(full + st, static_cast<unsigned>((n >> 1) & 1));
+    ns_full += split::ring_now() - f0;
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+      const unsigned long long q0 = split::ring_now();
+      float d[32];
+      issue_quarter(d, tile_s, w_s, 2 * wgi + qq);
+      wg::wait<0>();
       wg::fence_operands(d);
+      if (qq == 1) mbar_arrive(empty + st);  // this thread's products of the tile are done
+      const unsigned long long q1 = split::ring_now();
+      if (live) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const float cre = d[4 * j + cc] - d[4 * (j + 4) + 2 + cc];  // Br Wr - Bi Wi
-          const float cim = d[4 * (j + 4) + cc] + d[4 * j + 2 + cc];  // Br Wi + Bi Wr
-          const int jc = 2 * j + cc;
-          const int ix = 8 * Q + jc;
-          const float hr = pre[jc][0], hi = pre[jc][1];
-          sums[ix][0] += cre * hr + cim * hi;
-          sums[ix][1] += cim * hr - cre * hi;
+          for (int cc = 0; cc < 2; ++cc) {
+            const float cre = d[4 * j + cc] - d[4 * (j + 4) + 2 + cc];  // Br Wr - Bi Wi
+            const float cim = d[4 * (j + 4) + cc] + d[4 * j + 2 + cc];  // Br Wi + Bi Wr
+            const int jc = 2 * j + cc;
+            const float hr = hq[qq][jc][0], hi = hq[qq][jc][1];
+            sums[8 * qq + jc][0] += cre * hr + cim * hi;
+            sums[8 * qq + jc][1] += cim * hr - cre * hi;
+          }
         }
       }
-      if (Q + 2 < kQuarters) issue_quarter(d, tile_s, w_s, Q + 2);
+      if (b + 1 < pairs) load_h(hq[qq], b + 1, 2 * wgi + qq);
+#ifdef OFDM_RING_TRACE
+      asm volatile("" ::"f"(sums[8 * qq][0]));
+#endif
+      const unsigned long long q2 = split::ring_now();
+      ns_product += q1 - q0;
+      ns_fold += q2 - q1;
+      if (qq == 1) ns_second += q1 - q0;
     }
   }
-  // The block's bins: eq = num * inv in reference order (the DC bin dropped).
+  split::ring_put(t, 6, ns_issue);
+  split::ring_put(t, 7, ns_empty);
+  split::ring_put(t, 8, ns_full);
+  split::ring_put(t, 9, ns_product);
+  split::ring_put(t, 10, ns_fold);
+  split::ring_put(t, 11, ns_second);
+  __syncthreads();  // every copy has landed and every product is done: the tiles are free
+  done();
+  // The second antenna half's sums to the first through the tiles' memory
+  // (value i of thread u at [i][u], 128 threads' worth): thread u + 64 of a
+  // warpgroup (its warps 2 and 3) holds the same bins as thread u.
+  float* const half = reinterpret_cast<float*>(tiles) + wgi * 64 + (u & 63);
+  if (par) {
 #pragma unroll
-  for (int ix = 0; ix < 32; ++ix) {
-    const int bin = N1 * (32 * (ix >> 3) + 8 * ((ix >> 1) & 3) + 2 * t4 + (ix & 1)) + k1;
+    for (int i = 0; i < 16; ++i) {
+      half[(2 * i) * 128] = sums[i][0];
+      half[(2 * i + 1) * 128] = sums[i][1];
+    }
+  }
+  __syncthreads();
+  if (par) return;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    sums[i][0] += half[(2 * i) * 128];
+    sums[i][1] += half[(2 * i + 1) * 128];
+  }
+  // eq = num * inv in reference order (the DC bin dropped).
+  const float* const inv_k = p.gain + static_cast<long long>(k) * F;
+  float gain[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int Q = 2 * wgi + (i >> 3), jc = i & 7;
+    gain[i] = __ldg(inv_k + N1 * (32 * Q + 8 * (jc >> 1) + 2 * t4 + (jc & 1)) + k1);
+  }
+  const long long orow = item * (F - 1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int Q = 2 * wgi + (i >> 3), jc = i & 7;
+    const int bin = N1 * (32 * Q + 8 * (jc >> 1) + 2 * t4 + (jc & 1)) + k1;
     if (bin != 0) {
       int jo = bin - F / 2;
       if (jo < 0) jo += F - 1;
-      const float gain = __ldg(p.inv + static_cast<long long>(k) * F + bin);
-      const long long orow = item * (F - 1);
-      p.out_re[orow + jo] = sums[ix][0] * gain;
-      p.out_im[orow + jo] = sums[ix][1] * gain;
+      split::st_evict_first(p.out_re + orow + jo, sums[i][0] * gain[i], policy);
+      split::st_evict_first(p.out_im + orow + jo, sums[i][1] * gain[i], policy);
     }
   }
+}
+
+template <int N1, typename E>
+__global__ void __launch_bounds__(split::kRowThreads, split::kRingBlocks)
+fft_mrc_bf16_ring_kernel(const split::RingArgs p, const __grid_constant__ CUtensorMap map) {
+  using L = RingSmem<N1>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* const empty = full + 2;
+  uint64_t* const w_in = empty + 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, split::kRowThreads);
+    }
+    mbar_init(w_in, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map)) : "memory");
+    mbar_arrive_expect_tx(w_in, kWBytes);
+    for (int i = 0; i < kWBytes / kWPiece; ++i) {
+      bulk_copy(smem + L::kW + i * kWPiece,
+                static_cast<const unsigned char*>(p.w_image) + i * kWPiece, kWPiece, w_in);
+    }
+  }
+  // (ring_loop's first __syncthreads publishes the barriers to every thread.)
+  const unsigned w_s = smem_u32(smem + L::kW);
+  int n = 0;  // antenna pairs the block's row tiles have taken: tile stage n % 2
+  split::ring_loop<N1, E, kRingK1, __nv_bfloat16, true>(
+      p, reinterpret_cast<float*>(smem), reinterpret_cast<float2*>(smem + L::kTw),
+      [&](long long t, int item, int g, const __nv_bfloat16*, const __nv_bfloat16*,
+          const float2*, uint64_t policy, auto gate, auto done) {
+        gate();
+        __syncthreads();  // the symbol's column tiles are in its slot
+        ring_rows<N1>(p, &map, item, kRingK1 * g, n, item % p.slots, smem, w_s, full, empty,
+                      w_in, policy, t, done);
+        n += (p.A + 1) / 2;
+      });
 }
 
 // One TMA bulk copy of `bytes` into the same offset of the shared memory of
@@ -1222,27 +1407,19 @@ __global__ void __launch_bounds__(kPilotRowsThreads, 1) pilot_rows_kernel(const 
   cluster_wait();  // no block leaves while a peer still reads its sums
 }
 
-// The column pass and speed_rows_kernel over chunks of `chunk` symbols, the
-// scratch [2, chunk, A, F]; `tw` the split table (ops/fft_plan.py
-// split_tables, the sc16 scale in its four-step part).
+// One launch of the bf16 ring (fft_split.cuh launch_ring: the schedule
+// checked, two blocks an SM), the tensor map of its ring beside it.
 template <int N1>
-cudaError_t launch_rows(bool int16, const Params& p, const float* tw, float* scratch,
-                        int chunk, cudaStream_t stream) {
-  auto kernel = speed_rows_kernel<N1>;
-  cudaError_t err = allow_smem(kernel, kRowsBytes);
+cudaError_t ring_fft_mrc_bf16(bool int16, const split::RingArgs& p, cudaStream_t stream) {
+  constexpr size_t bytes = RingSmem<N1>::kBytes;
+  if (p.ring == nullptr || p.slots < 1 || p.A < 1) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  const cudaError_t err = ring_map(&map, p.ring, p.slots, p.A, N1);
   if (err != cudaSuccess) return err;
-  RowsParams r = {nullptr, nullptr, 0, p.S, p.A, p.h_re, p.h_im, p.inv, nullptr,
-                  nullptr, p.w, p.out_re, p.out_im, nullptr};
-  return split::run_split<N1>(
-      int16, p.y_re, p.y_im, p.stride_k, p.stride_s, p.stride_a, p.S, p.A,
-      static_cast<long long>(p.K) * p.S, tw, scratch, chunk, stream,
-      [&](const float* b_re, const float* b_im, long long i0, int n) {
-        r.b_re = b_re;
-        r.b_im = b_im;
-        r.item0 = i0;
-        kernel<<<dim3(N1 / kRowsK1, n), 128, kRowsBytes, stream>>>(r);
-        return cudaGetLastError();
-      });
+  return int16 ? split::launch_ring<N1, kRingK1>(fft_mrc_bf16_ring_kernel<N1, int16_t>, p,
+                                                 stream, bytes, map)
+               : split::launch_ring<N1, kRingK1>(fft_mrc_bf16_ring_kernel<N1, float>, p,
+                                                 stream, bytes, map);
 }
 
 // The column pass and pilot_rows_kernel over chunks of `chunk` frames: a
@@ -1257,8 +1434,8 @@ cudaError_t launch_pilot_rows(bool int16, const Params& p, int cl, const float* 
   cudaError_t err = allow_smem(kernel, kPilotRowsBytes);
   if (err != cudaSuccess) return err;
   constexpr int kGroups = N1 / kRowsK1;
-  RowsParams r = {nullptr, nullptr, 0, 1, p.A, nullptr, nullptr, nullptr, p.x_re,
-                  p.x_im, p.w, p.out_re, p.out_im, p.inv_out};
+  RowsParams r = {nullptr, nullptr, 0, p.A, p.x_re, p.x_im, p.w, p.out_re, p.out_im,
+                  p.inv_out};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cl;
@@ -1338,16 +1515,16 @@ cudaError_t dispatch(int F, bool pilot, const Params& p, int rows_cluster, const
                      float* scratch, int chunk, cudaStream_t st) {
   const long long items = static_cast<long long>(p.K) * p.S;
   constexpr bool int16 = sizeof(T) == 2;
-  switch (F) {
+  switch (F) {  // the pilot's split form (the data path's: its C entry, the ring)
     case 8192:
       return pilot ? launch_pilot_rows<64>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
-                   : launch_rows<64>(int16, p, split_tw, scratch, chunk, st);
+                   : cudaErrorInvalidValue;
     case 16384:
       return pilot ? launch_pilot_rows<128>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
-                   : launch_rows<128>(int16, p, split_tw, scratch, chunk, st);
+                   : cudaErrorInvalidValue;
     case 32768:
       return pilot ? launch_pilot_rows<256>(int16, p, rows_cluster, split_tw, scratch, chunk, st)
-                   : launch_rows<256>(int16, p, split_tw, scratch, chunk, st);
+                   : cudaErrorInvalidValue;
     default:
       break;
   }
@@ -1372,21 +1549,41 @@ cudaError_t dispatch(int F, bool pilot, const Params& p, int rows_cluster, const
 // samples, row (k, s, a) at element k*stride_k + s*stride_s + a*stride_a,
 // int16 when in_int16, float32 otherwise (any strides: the rows are read
 // element by element).  h_re/h_im [K, A, F] unconjugated estimate (16-byte
-// aligned: the kernel copies a chunk's rows in bulk) and inv [K, F],
-// natural order.  tw: [F/128, 128] (re, im) float32 stage-1 twiddles, the
-// sc16 scale folded in for int16 rows; from F = 8192 the split table of
-// ops/fft_plan.py (split_tables) with the same fold.  w: [128, 256] bf16
-// [Wr | Wi], 16-byte aligned (ops/fft_plan.py).  Outputs out_re/out_im
-// [K, S, F-1] in reference order.  scratch, chunk: from F = 8192 the split
-// form's scratch [2, chunk, A, F] float32 and the symbols of one chunk;
-// unused below.  Returns the cudaError_t of the launches.
+// aligned: below F = 8192 the kernel copies a chunk's rows in bulk) and inv
+// [K, F], natural order.  tw: [F/128, 128] (re, im) float32 stage-1
+// twiddles, the sc16 scale folded in for int16 rows; from F = 8192 the split
+// table of ops/fft_plan.py (split_tables) with the same fold.  Below F =
+// 8192: w [128, 256] bf16 [Wr | Wi], 16-byte aligned, w_image null, ring and
+// counters null.  From F = 8192: w null, w_image W's shared-memory image
+// (ops/fft_plan.py speed_w_image, 64 KB, 16-byte aligned), ring [2, slots,
+// A, F] bf16, the schedule's lag and its zeroed counters [1 + 2 K S]
+// (ops/fft_plan.py split_ring with the bf16 row tiles).  Outputs
+// out_re/out_im [K, S, F-1] in reference order.  Returns the cudaError_t of
+// the launch.
 extern "C" int ofdm_fft_mrc_bf16(const void* y_re, const void* y_im, int in_int16,
                                  long long stride_k, long long stride_s, long long stride_a,
                                  int K, int S, int A, int F, const float* h_re,
                                  const float* h_im, const float* inv, const float* tw,
-                                 const void* w, float* out_re, float* out_im, float* scratch,
-                                 int chunk, void* stream) {
-  if (K < 1 || S < 1 || A < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                 const void* w, const void* w_image, float* out_re,
+                                 float* out_im, void* ring, int slots, int lag,
+                                 unsigned* counters, void* stream) {
+  const bool split = F == 8192 || F == 16384 || F == 32768;
+  const long long items = static_cast<long long>(K) * S;
+  if (K < 1 || S < 1 || A < 1 || items >= (1LL << 31) ||
+      (split ? w != nullptr || w_image == nullptr : w == nullptr || w_image != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split) {
+    const ofdm::split::RingArgs r{y_re, y_im, stride_k, stride_s, stride_a, S, A,
+                                  static_cast<int>(items), slots, lag, 1.0f,
+                                  reinterpret_cast<const float2*>(tw), static_cast<float*>(ring),
+                                  counters, h_re, h_im, inv, out_re, out_im, w_image};
+    const bool int16 = in_int16 != 0;
+    return static_cast<int>(F == 8192    ? ofdm::speed::ring_fft_mrc_bf16<64>(int16, r, st)
+                            : F == 16384 ? ofdm::speed::ring_fft_mrc_bf16<128>(int16, r, st)
+                                         : ofdm::speed::ring_fft_mrc_bf16<256>(int16, r, st));
+  }
   const long long esize = in_int16 ? 2 : 4;
   int align = 16;
   for (long long v : {static_cast<long long>(reinterpret_cast<uintptr_t>(y_re)),
@@ -1397,16 +1594,23 @@ extern "C" int ofdm_fft_mrc_bf16(const void* y_re, const void* y_im, int in_int1
   ofdm::speed::Params p = {y_re, y_im, stride_k, stride_s, stride_a, K, S, A, h_re, h_im,
                            inv, nullptr, nullptr, reinterpret_cast<const float2*>(tw),
                            static_cast<const uint4*>(w), out_re, out_im, nullptr, align};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, 0, tw, scratch, chunk, st)
-               : ofdm::speed::dispatch<float>(F, false, p, 0, tw, scratch, chunk, st));
+      in_int16 ? ofdm::speed::dispatch<int16_t>(F, false, p, 0, nullptr, nullptr, 0, st)
+               : ofdm::speed::dispatch<float>(F, false, p, 0, nullptr, nullptr, 0, st));
 }
+
+#ifdef OFDM_RING_TRACE
+// The stamp buffer of a traced build (fft_split.cuh ring_trace), or null.
+extern "C" int ofdm_ring_trace_set(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(ofdm::split::ring_trace, &buf, sizeof(buf)));
+}
+#endif
 
 // Pilot rows: p_re/p_im at row (k=0, a=0) of K x A rows, row (k, a) at
 // element k*stride_k + a*stride_a, int16 or float32.  x_re/x_im: [F]
-// padded pilot, natural order, 16-byte aligned.  tw, scratch, chunk as for
-// ofdm_fft_mrc_bf16 (the chunk in frames).  Below F = 8192: w as there,
+// padded pilot, natural order, 16-byte aligned.  tw as for
+// ofdm_fft_mrc_bf16.  scratch, chunk: from F = 8192 the split form's
+// scratch [2, chunk, A, F] float32 and the frames of one chunk.  Below F = 8192: w as there,
 // w_image null and clusters 0.  From F = 8192: w null, w_image W's
 // shared-memory image (ops/fft_plan.py speed_w_image, 64 KB, 16-byte
 // aligned) and clusters the row pass's cluster (ops/fft_plan.py

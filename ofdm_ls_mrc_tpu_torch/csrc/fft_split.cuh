@@ -1,6 +1,7 @@
 // The split form of the FFT: the exact kernels at F = 16384 and 32768
-// (fft_mrc.cu, mrc_demod.cu, pilot_ls.cu) and the bf16 speed kernels' stage
-// 1 at F = 8192 to 32768 (fft_mrc_bf16.cu).
+// (fft_mrc.cu, mrc_demod.cu, pilot_ls.cu), the exact pilot at F = 8192
+// across a cluster (pilot_ls.cu, column_fft) and the bf16 speed kernels'
+// stage 1 at F = 8192 to 32768 (fft_mrc_bf16.cu).
 //
 // Why two passes.  Up to F = 8192 a row lives in the registers of one team
 // (fft_warp.cuh: 256 threads of 32 complex values at 8192) beside its sums
@@ -29,20 +30,24 @@
 //      of four consecutive k1 (g = (id & 3) + 4 (w & 1)) of antenna team
 //      p = w / 2.
 //
-// Where the passes meet.  The pilots and the bf16 kernels run the column
-// pass (fft_split.cu column_pass, one launch) into a scratch [2, chunk, A,
-// F] in device memory and their row pass after it, chunk by chunk (run_split
-// below, ops/fft_plan.py split_chunk): a frame's scratch costs a write and
-// a read of every sample beside the input's read.
+// Where the passes meet.  The split pilots (exact at 16384 and 32768, bf16
+// from 8192) run the column pass (fft_split.cu column_pass, one launch)
+// into a scratch [2, chunk, A, F] in device memory and their row pass after
+// it, chunk by chunk (run_split below, ops/fft_plan.py split_chunk): a
+// frame's scratch costs a write and a read of every sample beside the
+// input's read.
 //
-// The two exact data kernels (fft_mrc, mrc_demod) run both passes in ONE
-// persistent launch (ring_loop below): a grid of the blocks the card holds
+// The data kernels (the exact fft_mrc and mrc_demod, the bf16 fft_mrc_bf16)
+// run both passes in ONE persistent launch (ring_loop below; the bf16
+// kernel's row tiles, stage 2 on wgmma, and its bf16 slots in
+// fft_mrc_bf16.cu): a grid of the blocks the card holds
 // (kRingBlocks an SM, 256 threads, one block shape for both kinds of tile)
 // takes tiles by ticket, an atomicAdd on a counter:
 //   - a column tile: the column pass of C columns of one antenna row of
 //     one symbol (the work of one column-pass block), A 128 / C a symbol;
-//   - a row tile: the row pass of kK1 bins k1 over every antenna of one
-//     symbol, its fold and its epilogue, n1 / kK1 a symbol.
+//   - a row tile: the row pass of kK1 bins k1 (the bf16 kernel's: 16) over
+//     every antenna of one symbol, its fold and its epilogue, n1 / kK1 a
+//     symbol.
 // Tickets run in steps: step t holds the column tiles of symbol t, then the
 // row tiles of symbol t - L (the lag), so a tile only ever waits on tiles
 // with smaller tickets, which are done or running on resident blocks: no
@@ -72,6 +77,7 @@
 // both passes and the ring's schedule in numpy on its tables.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -311,14 +317,17 @@ __device__ __forceinline__ void column_load(const E* __restrict__ xr, const E* _
   }
 }
 
-template <int N1, typename Publish, typename Loaded, typename Gate>
-__device__ __forceinline__ void column_run(int c0, const float2* __restrict__ tw,
-                                           const float2 (&fw)[3], float* __restrict__ o_re,
-                                           float* __restrict__ o_im, float* smem,
-                                           Publish publish, Loaded loaded, Gate gate) {
+// column_run's first half: waits for the samples (publish() before the
+// barrier, loaded() after it), runs each column's FFT and the twiddle of
+// bin k1, and leaves B[k1][c0 + c] in column c's buffer, natural order (re
+// at smem + c kStride + k1, im kPlane floats on).  The buffers are read by
+// other teams (column_store) or, through distributed shared memory, by
+// other blocks (pilot_ls.cu at F = 8192) only after a barrier.
+template <int N1, typename Publish, typename Loaded>
+__device__ __forceinline__ void column_fft(const float2* __restrict__ tw, const float2 (&fw)[3],
+                                           float* smem, Publish publish, Loaded loaded) {
   using G = wfft::Geo<N1>;
-  constexpr int T = G::T, M = G::M, C = columns<N1>(), kStride = column_stride<N1>();
-  constexpr int kLoads = N1 * C / kColumnThreads;
+  constexpr int T = G::T, M = G::M, kStride = column_stride<N1>();
   const wfft::Team<T> team;
   wfft::cp_async_wait<0>();
   publish();
@@ -340,18 +349,51 @@ __device__ __forceinline__ void column_run(int c0, const float2* __restrict__ tw
     buf[k1] = b.x;
     buf[G::kPlane + k1] = b.y;
   }
-  gate();
-  __syncthreads();
+}
 
-  // [n1][C] out, as runs of C floats of the row's scratch.
+// A column pass output value: float32, or rounded to bf16 (nearest even;
+// the bf16 ring's slots).
+__device__ __forceinline__ void put(float* o, float v) { *o = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// Where row k1 of an antenna's plane starts in a scratch or ring slot, in
+// values from the antenna's first row: float32, [n1][128] (each plane its
+// own array); bf16 (the bf16 ring), [n1 / 8][2][8][128], the planes
+// interleaved by 8 rows from the re plane's row (the im plane's row k1 is
+// 8 rows on), so that a bf16 row tile's 32 rows k1 of both planes are one
+// run of 64 rows in the order its tile holds them.
+template <typename S>
+__host__ __device__ constexpr int slot_row(int k1) {
+  return sizeof(S) == 4 ? k1 * kN2 : (k1 >> 3) * 16 * kN2 + (k1 & 7) * kN2;
+}
+
+// [n1][C] out of the column buffers, as runs of C values of the row's
+// scratch (o_re, o_im: row 0 of each plane), after a __syncthreads.
+template <int N1, typename S>
+__device__ __forceinline__ void column_store(int c0, S* __restrict__ o_re, S* __restrict__ o_im,
+                                             const float* smem) {
+  using G = wfft::Geo<N1>;
+  constexpr int C = columns<N1>(), kStride = column_stride<N1>();
+  constexpr int kLoads = N1 * C / kColumnThreads;
 #pragma unroll
   for (int u = 0; u < kLoads; ++u) {
     const int idx = threadIdx.x + u * kColumnThreads;
     const float* col = smem + (idx % C) * kStride;
-    const int at = (idx / C) * kN2 + c0 + idx % C;
-    o_re[at] = col[idx / C];
-    o_im[at] = col[G::kPlane + idx / C];
+    const int at = slot_row<S>(idx / C) + c0 + idx % C;
+    put(o_re + at, col[idx / C]);
+    put(o_im + at, col[G::kPlane + idx / C]);
   }
+}
+
+template <int N1, typename S, typename Publish, typename Loaded, typename Gate>
+__device__ __forceinline__ void column_run(int c0, const float2* __restrict__ tw,
+                                           const float2 (&fw)[3], S* __restrict__ o_re,
+                                           S* __restrict__ o_im, float* smem,
+                                           Publish publish, Loaded loaded, Gate gate) {
+  column_fft<N1>(tw, fw, smem, publish, loaded);
+  gate();
+  __syncthreads();
+  column_store<N1>(c0, o_re, o_im, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -506,11 +548,11 @@ __device__ __forceinline__ float2 row_sum(const float* smem, int P, int g, int k
 }
 
 // ---------------------------------------------------------------------------
-// The chunk loop (pilots, bf16 kernels)
+// The chunk loop (the split pilots)
 // ---------------------------------------------------------------------------
 
-// The chunk loop of the pilots' and the bf16 kernels' split entry points:
-// items (symbols; the pilot: frames) [i0, i0 + n), n <= chunk, go through
+// The chunk loop of the split pilots' entry points: items (frames) [i0, i0
+// + n), n <= chunk, go through
 // the column pass into the scratch [2, chunk, A, N1 * 128] (its planes b_re,
 // b_im), then rows(b_re, b_im, i0, n) launches the caller's row pass.  The
 // rows as for column_pass.
@@ -538,27 +580,34 @@ cudaError_t run_split(bool int16, const void* y_re, const void* y_im, long long 
 // ---------------------------------------------------------------------------
 
 // Built with -DOFDM_RING_TRACE, each ticket's block stamps %globaltimer
-// into ring_trace [tickets][6]: 0 the tile's start; a column tile 1 its
-// samples loaded, 2 and 3 around its wait for the slot (after the FFT), 4
-// stored and handed on; a row tile 1 and 2 around its wait for the columns,
-// 3 its rows read and folded, 4 its epilogue stored; 5 the block, kind and
-// item.
+// into ring_trace [tickets][kRingStamps]: 0 the tile's start; a column tile
+// 1 its samples loaded, 2 and 3 around its wait for the slot (after the
+// FFT), 4 stored and handed on; a row tile 1 and 2 around its wait for the
+// columns, 3 its rows read (the slot handed on), 4 its epilogue stored; 5
+// the block, kind and item; 6 .. 11 a kernel's own phase sums of a row
+// tile in nanoseconds (the bf16 ring: fft_mrc_bf16.cu).
+constexpr int kRingStamps = 12;
 #ifdef OFDM_RING_TRACE
 static __device__ unsigned long long* ring_trace;
-__device__ __forceinline__ void ring_stamp(long long t, int k) {
-  if (threadIdx.x == 0 && ring_trace != nullptr) {
-    unsigned long long now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    ring_trace[6 * t + k] = now;
+__device__ __forceinline__ unsigned long long ring_now() {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  return now;
+}
+// Entry k of ticket t, written by thread `by` of the block.
+__device__ __forceinline__ void ring_put(long long t, int k, unsigned long long v, int by = 0) {
+  if (static_cast<int>(threadIdx.x) == by && ring_trace != nullptr) {
+    ring_trace[kRingStamps * t + k] = v;
   }
 }
+__device__ __forceinline__ void ring_stamp(long long t, int k) { ring_put(t, k, ring_now()); }
 __device__ __forceinline__ void ring_note(long long t, bool column, int item) {
-  if (threadIdx.x == 0 && ring_trace != nullptr) {
-    ring_trace[6 * t + 5] = (static_cast<unsigned long long>(blockIdx.x) << 32) |
-                            (static_cast<unsigned long long>(column) << 31) | item;
-  }
+  ring_put(t, 5, (static_cast<unsigned long long>(blockIdx.x) << 32) |
+                     (static_cast<unsigned long long>(column) << 31) | item);
 }
 #else
+__device__ __forceinline__ unsigned long long ring_now() { return 0; }
+__device__ __forceinline__ void ring_put(long long, int, unsigned long long, int = 0) {}
 __device__ __forceinline__ void ring_stamp(long long, int) {}
 __device__ __forceinline__ void ring_note(long long, bool, int) {}
 #endif
@@ -573,13 +622,14 @@ struct RingArgs {
   int slots, lag;          // R and L (ops/fft_plan.py split_ring)
   float scale;             // 1, or 1 / 32767 for int16 rows
   const float2* tw;        // the split table
-  float* ring;             // [2, slots, A, F]
+  float* ring;             // [2, slots, A, F] float32 (the bf16 ring: bf16)
   unsigned* counters;      // [1 + 2 items], zeroed: the ticket, columns done, rows done
   const float* h_re;       // fft_mrc: [K, A, F] h; mrc_demod: [A, F] hc
   const float* h_im;
   const float* gain;       // fft_mrc: [K, F] inv; mrc_demod: [F] hsqrd
   float* out_re;
   float* out_im;
+  const void* w_image;     // the bf16 ring: W's shared-memory image (fft_mrc_bf16.cu)
 };
 
 // Ticket t -> (column or row tile, item, tile index).  Steps [0, lag) hold
@@ -609,25 +659,35 @@ __host__ __device__ constexpr int ring_column_groups() {
   return kN2 / columns<N1>();
 }
 
+// Row tiles of a symbol: n1 / kRowK1, kRowK1 bins k1 a tile (ops/fft_plan.py
+// split_ring_tiles): the exact kernels' kK1 = 8, the bf16 kernel's 32.
+template <int N1, int kRowK1>
+__host__ __device__ constexpr int ring_row_tiles() {
+  return N1 / kRowK1;
+}
+
 // The persistent loop of a ring kernel (one launch a call, a 1-D grid of
-// kRingThreads blocks): load the pass twiddles of both FFTs into shared
-// memory, then take tickets until they run out.  A column tile runs
-// column_load + column_run into its symbol's slot; a row tile calls
-// rows(item, q, b_re, b_im, tw, policy, gate, done) for bins k1 = kK1 q ..
-// kK1 q + 7 (tw: the row FFT's pass twiddles in shared memory): the caller
-// runs row_pass with gate, then __syncthreads(), done() (the slot is
-// free), and its epilogue.  Thread 0 takes the block's next ticket as a tile
-// starts and publishes it in shared memory just before one of the tile's
-// barriers, so the atomic's latency hides under the tile.
-template <int N1, typename E, typename Rows>
-__device__ __forceinline__ void ring_loop(const RingArgs& p, float* smem, Rows rows) {
-  constexpr int F = N1 * kN2, CB = ring_column_groups<N1>(), RT = N1 / kK1;
+// kRowThreads blocks): load the pass twiddles of both FFTs into tw (shared
+// memory), then take tickets until they run out.  A column tile runs
+// column_load + column_run into its symbol's slot (elements of S: float32,
+// or the bf16 ring's bf16), in the first column_smem_bytes of smem; a row
+// tile calls rows(t, item, q, b_re, b_im, tw, policy, gate, done) for
+// ticket t, bins k1 = kRowK1 q .. kRowK1 q + kRowK1 - 1
+// (tw: the row FFT's pass twiddles in shared memory): the caller runs gate()
+// on every thread before a __syncthreads that precedes its first read of the
+// slot, done() once its reads of the slot are over (the slot is free), and
+// its epilogue.  Thread 0 takes the block's next ticket as a tile starts and
+// publishes it in shared memory just before one of the tile's barriers, so
+// the atomic's latency hides under the tile.
+template <int N1, typename E, int kRowK1, typename S = float, bool kLateRowTicket = false,
+          typename Rows>
+__device__ __forceinline__ void ring_loop(const RingArgs& p, float* smem, float2* tw, Rows rows) {
+  constexpr int F = N1 * kN2, CB = ring_column_groups<N1>(), RT = ring_row_tiles<N1, kRowK1>();
   const int ct = p.A * CB;
   const long long total = static_cast<long long>(p.items) * (ct + RT);
   unsigned* const cols_done = p.counters + 1;
   unsigned* const rows_done = p.counters + 1 + p.items;
   const uint64_t policy = evict_first_policy();
-  float2* const tw = reinterpret_cast<float2*>(smem + ring_gain_offset() + kGainFloats);
   for (int i = threadIdx.x; i < ring_twiddles<N1>(); i += kRowThreads) tw[i] = p.tw[i];
   const float2* const four = p.tw + four_tw_offset<N1>();
   __shared__ unsigned next[2];  // the block's ticket, and the one after it
@@ -635,25 +695,32 @@ __device__ __forceinline__ void ring_loop(const RingArgs& p, float* smem, Rows r
   __syncthreads();
   for (int it = 0;; ++it) {
     const unsigned t = next[it & 1];
-    // The next ticket, taken as this tile starts: a block holds at most two,
-    // the larger one idle, so the smallest ticket not done always runs.
-    unsigned after = 0;
-    if (threadIdx.x == 0) after = atomicAdd(p.counters, 1u);
-    auto publish = [&]() {
-      if (threadIdx.x == 0) next[(it + 1) & 1] = after;
-    };
     if (t >= total) break;
     const Ticket tk = ring_ticket(t, p.items, p.lag, ct, RT);
+    // The next ticket, taken as this tile starts: a block holds at most two,
+    // the larger one idle, so the smallest ticket not done always runs.
+    // With kLateRowTicket a row tile takes it as it ends instead, so no
+    // column tile waits idle behind a long row tile.
+    const bool early = !(kLateRowTicket && !tk.column);
+    unsigned after = 0;
+    if (threadIdx.x == 0 && early) after = atomicAdd(p.counters, 1u);
+    auto publish = [&]() {
+      if (threadIdx.x == 0 && early) next[(it + 1) & 1] = after;
+    };
     ring_stamp(t, 0);
     ring_note(t, tk.column, tk.item);
     const long long slot = tk.item % p.slots;
-    float* const b_re = p.ring + slot * p.A * F;
-    float* const b_im = b_re + static_cast<long long>(p.slots) * p.A * F;
+    // The slot's planes: float32 [2][R][A][n1][128], each plane an array;
+    // bf16 [R][A][n1 / 8][2][8][128] (slot_row), b_im 8 rows after b_re.
+    constexpr bool kSplitPlanes = sizeof(S) == 4;
+    S* const b_re = reinterpret_cast<S*>(p.ring) + slot * p.A * F * (kSplitPlanes ? 1 : 2);
+    S* const b_im =
+        kSplitPlanes ? b_re + static_cast<long long>(p.slots) * p.A * F : b_re + 8 * kN2;
     if (tk.column) {
       const int a = tk.index / CB, c0 = (tk.index % CB) * columns<N1>();
       const long long off = (tk.item / p.S) * p.stride_k + (tk.item % p.S) * p.stride_s +
                             a * p.stride_a;
-      const long long row = static_cast<long long>(a) * F;
+      const long long row = static_cast<long long>(a) * F * (kSplitPlanes ? 1 : 2);
       float2 fw[3];
       column_load<N1, E, true>(static_cast<const E*>(p.y_re) + off,
                                static_cast<const E*>(p.y_im) + off, c0, four, fw, smem, policy);
@@ -674,7 +741,7 @@ __device__ __forceinline__ void ring_loop(const RingArgs& p, float* smem, Rows r
       ring_stamp(t, 4);
       continue;
     }
-    rows(tk.item, tk.index, b_re, b_im, tw + wfft::Geo<N1>::kTwiddles, policy,
+    rows(t, tk.item, tk.index, b_re, b_im, tw + wfft::Geo<N1>::kTwiddles, policy,
          [&]() {
            ring_stamp(t, 1);
            if (threadIdx.x == 0) wait_count(cols_done + tk.item, ct);
@@ -685,25 +752,27 @@ __device__ __forceinline__ void ring_loop(const RingArgs& p, float* smem, Rows r
            if (threadIdx.x == 0) arrive(rows_done + tk.item);
            ring_stamp(t, 3);
          });
-    ring_stamp(t, 4);
+    if (threadIdx.x == 0 && !early) next[(it + 1) & 1] = atomicAdd(p.counters, 1u);
     __syncthreads();  // the epilogue's reads of shared memory are done
+    ring_stamp(t, 4);
   }
 }
 
-// Launch a ring kernel (fft_mrc.cu, mrc_demod.cu): check the schedule
-// (ops/fft_plan.py split_ring), then a grid of the blocks the card holds,
-// no more than there are tiles.  cudaErrorInvalidValue for a schedule the
-// kernel cannot run.
-template <int N1, typename Kernel>
-cudaError_t launch_ring(Kernel kernel, const RingArgs& p, cudaStream_t stream) {
-  constexpr int CB = ring_column_groups<N1>(), RT = N1 / kK1;
+// Launch a ring kernel (fft_mrc.cu, mrc_demod.cu; fft_mrc_bf16.cu with
+// kRowK1 = 32, its own shared memory and a tensor map of its ring after
+// the arguments): check the schedule (ops/fft_plan.py split_ring), then a
+// grid of the blocks the card holds, no more than there are tiles.
+// cudaErrorInvalidValue for a schedule the kernel cannot run.
+template <int N1, int kRowK1 = kK1, typename Kernel, typename... Extra>
+cudaError_t launch_ring(Kernel kernel, const RingArgs& p, cudaStream_t stream,
+                        size_t bytes = ring_smem_bytes<N1>(), const Extra&... extra) {
+  constexpr int CB = ring_column_groups<N1>(), RT = ring_row_tiles<N1, kRowK1>();
   if (p.ring == nullptr || p.counters == nullptr || p.items < 1 || p.A < 1 || p.S < 1 ||
       p.slots < 1 || p.lag < 1 || p.lag > p.items || (p.items > p.slots && p.lag >= p.slots)) {
     return cudaErrorInvalidValue;
   }
   const long long total = static_cast<long long>(p.items) * (static_cast<long long>(p.A) * CB + RT);
   if (total >= (1LL << 31)) return cudaErrorInvalidValue;
-  constexpr size_t bytes = ring_smem_bytes<N1>();
   cudaError_t err = allow_smem(kernel, bytes);
   int sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = sm_count(&sms);
@@ -715,7 +784,7 @@ cudaError_t launch_ring(Kernel kernel, const RingArgs& p, cudaStream_t stream) {
   const long long grid = static_cast<long long>(per_sm) * sms < total
                              ? static_cast<long long>(per_sm) * sms
                              : total;
-  kernel<<<static_cast<unsigned>(grid), kRowThreads, bytes, stream>>>(p);
+  kernel<<<static_cast<unsigned>(grid), kRowThreads, bytes, stream>>>(p, extra...);
   return cudaGetLastError();
 }
 

@@ -326,25 +326,18 @@ __device__ __forceinline__ void prefetch_row(const float* h_re, const float* h_i
   }
 }
 
-// FFT of the row staged (raw, element type E) in buf, unscaled; buf is then
-// the exchange buffer.  On return register m holds bin j + T m and the team is
-// done reading buf only after its next sync.
-template <int F, typename E>
-__device__ __forceinline__ void row_fft(float2 (&v)[Geo<F>::M], float* buf,
-                                        const float2* __restrict__ tw,
-                                        const Team<Geo<F>::T>& team) {
+// FFT of the row whose positions j + T m the team's lanes hold in v
+// (register m), unscaled; buf is the exchange buffer.  On return register m
+// holds bin j + T m and the team is done with buf only after its next sync.
+template <int F>
+__device__ __forceinline__ void row_fft_regs(float2 (&v)[Geo<F>::M], float* buf,
+                                             const float2* __restrict__ tw,
+                                             const Team<Geo<F>::T>& team) {
   using G_ = Geo<F>;
   using P_ = Plan<F>;
-  constexpr int M = G_::M, T = G_::T;
-  const E* sre = reinterpret_cast<const E*>(buf);
-  const E* sim = reinterpret_cast<const E*>(buf + G_::kPlane);
   const int j = team.j;
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    v[m] = make_float2(widen(sre[j + T * m]), widen(sim[j + T * m]));
-  }
   run_pass<F, P_::R0, 1>(v, tw, j);
-  team.sync();  // the staged row has been read by every thread
+  team.sync();  // a row staged in buf has been read by every thread
   write_exchange<F, P_::R0, 1>(v, buf, j);
   team.sync();
   read_exchange<F>(v, buf, j);
@@ -356,6 +349,25 @@ __device__ __forceinline__ void row_fft(float2 (&v)[Geo<F>::M], float* buf,
     read_exchange<F>(v, buf, j);
     run_pass<F, P_::R2, P_::R0 * P_::R1>(v, tw + G_::kTw1, j);
   }
+}
+
+// FFT of the row staged (raw, element type E) in buf, unscaled; buf is then
+// the exchange buffer.  On return register m holds bin j + T m and the team is
+// done reading buf only after its next sync.
+template <int F, typename E>
+__device__ __forceinline__ void row_fft(float2 (&v)[Geo<F>::M], float* buf,
+                                        const float2* __restrict__ tw,
+                                        const Team<Geo<F>::T>& team) {
+  using G_ = Geo<F>;
+  constexpr int M = G_::M, T = G_::T;
+  const E* sre = reinterpret_cast<const E*>(buf);
+  const E* sim = reinterpret_cast<const E*>(buf + G_::kPlane);
+  const int j = team.j;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    v[m] = make_float2(widen(sre[j + T * m]), widen(sim[j + T * m]));
+  }
+  row_fft_regs<F>(v, buf, tw, team);
 }
 
 // ---------------------------------------------------------------------------

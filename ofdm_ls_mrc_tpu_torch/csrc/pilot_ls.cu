@@ -42,10 +42,27 @@
 // bins a rank.  One 4 x 64 pilot moves 4.9 KB: its time is the launch and
 // the cluster's barriers, nothing else.  ptxas (sm_90a): 48-56 registers at
 // F = 64, 72-80 at 128, no spills.
-// F = 8192: a team is 256 threads and a block one team (pilot_max_threads
-// caps it at 256), whose first buffer holds the block's |h|^2 sums (no
-// separate sum, so the block fits: 200,704 B); 162-198 registers, no spills;
-// a 16 x 8192 pilot is a cluster of 8 blocks of 2 rows, ~13 us on an H100.
+// F = 8192 (pilot_ls_row_kernel below): 4 blocks per antenna row, F = 64 x
+// 128 split across them, a thread block cluster of G rows (G = 4, 2 or 1,
+// the largest dividing A; grid (4 A, K)): block r of a row runs the column
+// FFT of columns 32 r .. 32 r + 31 (fft_split.cuh column_load +
+// column_fft, the four-step twiddle in), and after a cluster barrier the
+// 128-point FFT of rows k1 = 16 r .. 16 r + 15, each gathered from its
+// row's four blocks' columns through distributed shared memory, then h =
+// Y conj(X) scale / |X|^2 stored as it is formed and |h|^2 kept in shared
+// memory.  Sum_a |h|^2 is a tree with no float atomics (the same sums every
+// run): the cluster's G blocks of rank r add their rows' |h|^2 through
+// distributed shared memory, each a G-th of the rank's bins, in row order,
+// into the cluster's partial; per frame and block slot a device-scope count
+// of the A / G clusters' blocks, and the block that completes it adds the
+// partials of its bins in cluster order and writes inv (or the sum),
+// setting the count back to 0 for the next launch on the stream (with one
+// cluster, A = G, it writes inv at once).  So a 16 x 8192 pilot runs on 64
+// SMs, no SM with more than a 64-point and a 128-point FFT in its chain,
+// where the register plan before it ran 8 blocks of two 8192-point rows in
+// series (~12.9 us on an H100).  (The sum's first level through device
+// memory, the last block of a group of four rows reading their h from L2,
+// cost ~4 of 11.6 us; PERF.md.)
 // F = 16384 and 32768: the split form (fft_split.cuh): the column pass, then
 // pilot_ls_rows_kernel below, a cluster of up to 8 blocks for each 8 bins
 // k1 of a frame, the antennas spread over its blocks (16 x 16384: 16
@@ -69,17 +86,17 @@ namespace cg = cooperative_groups;
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
-// Most threads a pilot block holds: 128, or two teams where a team is more
-// than 64 threads (F = 4096), but no more than 256 (F = 8192: one team).
+// Most threads a pilot block of the register plans (F <= 4096) holds: 128,
+// or two teams where a team is more than 64 threads (F = 4096: 256).
 // Mirrored by ops/fft_plan.py pilot_max_threads.
 template <int F>
 __host__ __device__ constexpr int pilot_max_threads() {
-  return 2 * wfft::Geo<F>::T > 256 ? 256 : 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;
+  return 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;
 }
 
 // Dynamic shared memory of a block of `teams` teams: the teams' buffers, X
 // (two planes of F floats), then the block's sum over its teams (F floats;
-// one team sums into its first buffer, which keeps F = 8192 at 200,704 B).
+// one team sums into its first buffer).
 template <int F>
 __host__ __device__ constexpr size_t pilot_smem_bytes(int teams) {
   return (static_cast<size_t>(teams) * wfft::Geo<F>::kTeamFloats + 2 * F + (teams > 1 ? F : 0)) *
@@ -196,6 +213,227 @@ pilot_ls_kernel(const T* __restrict__ y_re, const T* __restrict__ y_im,
   cluster.sync();  // no block leaves while a peer still reads its bsum
 }
 
+// F = 8192: the blocks of an antenna row, the row's columns and bins k1 of
+// a block (ops/fft_plan.py PILOT_ROW_BLOCKS and pilot_plan), and the most
+// rows a cluster holds (a cluster of 16 blocks, past the portable 8).
+constexpr int kRowBlocks = 4;
+constexpr int kRowN1 = 64;                       // F = 8192 = 64 x 128
+constexpr int kRowK1 = kRowN1 / kRowBlocks;      // 16 rows k1 of stage 2 a block
+constexpr int kRowBins = kRowK1 * split::kN2;    // 2048 bins a block
+constexpr int kRowMaxRows = 4;
+static_assert(split::columns<kRowN1>() * kRowBlocks == split::kN2, "a row's columns");
+
+// Rows of a cluster: 4, 2 or 1, the largest dividing A (ops/fft_plan.py
+// pilot_row_rows).
+__host__ __device__ constexpr int row_rows(int A) { return A % 4 == 0 ? 4 : A % 2 == 0 ? 2 : 1; }
+
+// Dynamic shared memory of an F = 8192 block: the column buffers (read by the
+// row's blocks), one 8-lane team buffer for each of its kRowK1 rows k1,
+// then |h|^2 of its kRowBins bins (read by the cluster) (ops/fft_plan.py
+// pilot_smem_bytes).
+__host__ __device__ constexpr size_t row_pilot_smem_bytes() {
+  return split::column_smem_bytes<kRowN1>() +
+         static_cast<size_t>(kRowK1) * split::RowGeo::kTeamFloats * sizeof(float) +
+         static_cast<size_t>(kRowBins) * sizeof(float);
+}
+
+template <typename E>
+__global__ void __launch_bounds__(split::kColumnThreads, 2)
+pilot_ls_row_kernel(const E* __restrict__ y_re, const E* __restrict__ y_im, long long stride_k,
+                    long long stride_a, float scale, int A, const float* __restrict__ x_re,
+                    const float* __restrict__ x_im, const float2* __restrict__ tw,
+                    float* __restrict__ h_re, float* __restrict__ h_im, float* __restrict__ inv,
+                    int invert, float* __restrict__ partials, unsigned* __restrict__ counters) {
+  using RG = split::RowGeo;
+  constexpr int F = kRowN1 * split::kN2, M = RG::M, L = split::kRowLanes;
+  constexpr int kStride = split::column_stride<kRowN1>();
+  constexpr int kPlane1 = wfft::Geo<kRowN1>::kPlane;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const abs2 = smem + (row_pilot_smem_bytes() / sizeof(float) - kRowBins);
+  __shared__ int last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slot = static_cast<int>(cluster.block_rank());  // kRowBlocks i + r
+  const int G = static_cast<int>(cluster.num_blocks()) / kRowBlocks;
+  const int rank = slot % kRowBlocks, i = slot / kRowBlocks;  // block of its row, row of the cluster
+  const int a = static_cast<int>(blockIdx.x) / kRowBlocks;
+  const long long k = blockIdx.y;
+  const long long off = k * stride_k + a * stride_a;
+  if (threadIdx.x < wfft::Geo<kRowN1>::kTwiddles * 8 / 128) {  // the column FFT's twiddles into L1
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(tw + 16 * threadIdx.x));
+  }
+  float2 fw[3];
+  split::column_load<kRowN1, E, false>(y_re + off, y_im + off, split::columns<kRowN1>() * rank,
+                                       tw + split::four_tw_offset<kRowN1>(), fw, smem, 0);
+  // Stage 2's threads (16 teams of 8 lanes): row k1 of the block, X and
+  // scale / |X|^2 of its bins k1 + 64 (j + 8 m), loaded during stage 1.
+  const bool rows = threadIdx.x < kRowK1 * L;
+  const wfft::Team<L> team;
+  const int j = team.j;
+  const int k1 = kRowK1 * rank + team.id;
+  float xr[M], xi[M];
+  if (rows) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      xr[m] = __ldg(x_re + k1 + kRowN1 * (j + L * m));
+      xi[m] = __ldg(x_im + k1 + kRowN1 * (j + L * m));
+    }
+  }
+  split::column_fft<kRowN1>(tw, fw, smem, []() {}, []() {});
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+  asm volatile("barrier.cluster.wait;" ::: "memory");  // every block's columns are in
+  if (rows) {
+    // Position i2 = j + 8 m of row k1: column i2 % 32 of the row's block
+    // i2 / 32 = m / 4.
+    float2 v[M];
+    const float* peer[kRowBlocks];
+#pragma unroll
+    for (int r = 0; r < kRowBlocks; ++r) {
+      peer[r] = cluster.map_shared_rank(smem, kRowBlocks * i + r);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float* col = peer[m / 4] + (j + L * (m % 4)) * kStride + k1;
+      v[m] = make_float2(col[0], col[kPlane1]);
+    }
+    float* const buf = smem + split::column_smem_bytes<kRowN1>() / sizeof(float) +
+                       team.id * RG::kTeamFloats;
+    wfft::row_fft_regs<split::kN2>(v, buf, tw + split::row_tw_offset<kRowN1>(), team);
+    const long long row = (k * A + a) * F + k1;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      // scale / |X|^2 by the fast reciprocal (2 ulp), as the other plans.
+      const float den = __fdividef(scale, xr[m] * xr[m] + xi[m] * xi[m]);
+      const float hr = (v[m].x * xr[m] + v[m].y * xi[m]) * den;
+      const float hi = (v[m].y * xr[m] - v[m].x * xi[m]) * den;
+      h_re[row + kRowN1 * (j + L * m)] = hr;
+      h_im[row + kRowN1 * (j + L * m)] = hi;
+      abs2[(j + L * m) * kRowK1 + team.id] = hr * hr + hi * hi;  // bin entry k2 kRowK1 + k1 % 16
+    }
+  }
+  // The peers' columns are read and this block's |h|^2 is written.
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+  // The cluster's rows' |h|^2 of this rank's entries [i E, (i + 1) E), E =
+  // kRowBins / G, in row order: thread u takes 8 consecutive entries (k2 =
+  // e / 16, k1 % 16 = e % 16) when 8 u < E.
+  const int per = kRowBins / G, e = per * i + 8 * static_cast<int>(threadIdx.x);
+  const bool mine = 8 * static_cast<int>(threadIdx.x) < per;
+  float4 s[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+  if (mine) {
+    float4 part[kRowMaxRows][2];
+#pragma unroll
+    for (int b = 0; b < kRowMaxRows; ++b) {
+      if (b < G) {
+        const float4* src = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(abs2, kRowBlocks * b + rank) + e);
+        part[b][0] = src[0];
+        part[b][1] = src[1];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kRowMaxRows; ++b) {
+      if (b < G) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[h].x += part[b][h].x;
+          s[h].y += part[b][h].y;
+          s[h].z += part[b][h].z;
+          s[h].w += part[b][h].w;
+        }
+      }
+    }
+  }
+  asm volatile("barrier.cluster.arrive;" ::: "memory");  // the peers' |h|^2 is read
+  // Entry e's bin: k1 = 16 rank + e % 16, k2 = e / 16 (8 consecutive k1).
+  const long long bin = kRowN1 * (e / kRowK1) + kRowK1 * rank + e % kRowK1;
+  const int clusters = A / G, c = a / G;
+  bool store = clusters == 1;  // this block writes inv of its entries
+  if (clusters > 1) {  // the cluster's partial; the last cluster adds them
+    if (mine) {
+      float4* const dst = reinterpret_cast<float4*>(partials + (k * clusters + c) * F + bin);
+      dst[0] = s[0];
+      dst[1] = s[1];
+    }
+    __syncthreads();
+    unsigned* const count = counters + k * kRowBlocks * kRowMaxRows + slot;
+    if (threadIdx.x == 0) {
+      __threadfence();  // the block's partial before its count
+      last = atomicAdd(count, 1u) == static_cast<unsigned>(clusters - 1);
+      if (last) atomicExch(count, 0u);  // every cluster has counted: 0 for the next launch
+    }
+    __syncthreads();
+    store = last;
+    if (store && mine) {
+      __threadfence();
+      s[0] = s[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float* const pk = partials + k * clusters * F + bin;
+      for (int c0 = 0; c0 < clusters; c0 += kRowMaxRows) {
+        float4 pg[kRowMaxRows][2];
+#pragma unroll
+        for (int b = 0; b < kRowMaxRows; ++b) {
+          if (c0 + b < clusters) {
+            pg[b][0] = __ldcg(reinterpret_cast<const float4*>(pk + (c0 + b) * F));
+            pg[b][1] = __ldcg(reinterpret_cast<const float4*>(pk + (c0 + b) * F) + 1);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kRowMaxRows; ++b) {
+          if (c0 + b < clusters) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              s[h].x += pg[b][h].x;
+              s[h].y += pg[b][h].y;
+              s[h].z += pg[b][h].z;
+              s[h].w += pg[b][h].w;
+            }
+          }
+        }
+      }
+    }
+  }
+  if (store && mine) {
+    float4* const out = reinterpret_cast<float4*>(inv + k * F + bin);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      out[h] = invert ? make_float4(1.0f / s[h].x, 1.0f / s[h].y, 1.0f / s[h].z, 1.0f / s[h].w)
+                      : s[h];
+    }
+  }
+  asm volatile("barrier.cluster.wait;" ::: "memory");  // no block leaves while a peer reads it
+}
+
+template <typename E>
+cudaError_t row_pilot(const void* y_re, const void* y_im, long long stride_k, long long stride_a,
+                      float scale, int K, int A, const float* x_re, const float* x_im,
+                      const float* tw, float* h_re, float* h_im, float* inv, int invert,
+                      float* partials, unsigned* counters, cudaStream_t stream) {
+  auto kernel = pilot_ls_row_kernel<E>;
+  constexpr size_t smem = row_pilot_smem_bytes();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess && row_rows(A) * kRowBlocks > kMaxCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = row_rows(A) * kRowBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRowBlocks * A, K);
+  cfg.blockDim = dim3(split::kColumnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const E*>(y_re), static_cast<const E*>(y_im),
+                           stride_k, stride_a, scale, A, x_re, x_im,
+                           reinterpret_cast<const float2*>(tw), h_re, h_im, inv, invert, partials,
+                           counters);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // Dynamic shared memory of a split pilot block of `teams` antenna teams: the
 // row pass's buffers, then X of its kK1 x 128 bins (ops/fft_plan.py
 // pilot_smem_bytes).
@@ -268,7 +506,6 @@ cudaError_t dispatch_pilot(int F, const void* y_re, const void* y_im,
     OFDM_PILOT_CASE(1024)
     OFDM_PILOT_CASE(2048)
     OFDM_PILOT_CASE(4096)
-    OFDM_PILOT_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
@@ -475,20 +712,37 @@ cudaError_t split_pilot(bool int16, const void* y_re, const void* y_im, long lon
 // aligned (the cp.async load path).  clusters, teams, rows, smem: the launch
 // geometry of ops/fft_plan.py pilot_plan(A, F), checked against the kernel's
 // own (cudaErrorInvalidValue when it differs).  x_re/x_im: [F] padded pilot,
-// natural order.  tw: the pass twiddles of ops/fft_plan.py, at F = 16384 and
-// 32768 its split table.  Outputs h_re/h_im [K, A, F] and inv [K, F]:
-// 1 / sum_a |h|^2, or the sum itself when invert is 0.  scratch, chunk: at
-// F = 16384 and 32768 the split form's scratch [2, chunk, A, F] float32 and
-// the frames of one chunk; unused below.  Returns the cudaError_t of the
-// launches.
+// natural order.  tw: the pass twiddles of ops/fft_plan.py, from F = 8192 its
+// split table.  Outputs h_re/h_im [K, A, F] and inv [K, F]: 1 / sum_a |h|^2,
+// or the sum itself when invert is 0.  scratch, chunk: at F = 16384 and
+// 32768 the split form's scratch [2, chunk, A, F] float32 and the frames of
+// one chunk; at F = 8192 the sum's partials [K, A / G, F] float32 (G the
+// rows of a cluster, ops/fft_plan.py pilot_row_rows; none where A = G).
+// counters: at F = 8192 [K, 16] unsigned, zero (the kernel leaves them
+// zero: a launch may reuse them once the last is done); unused elsewhere.
+// Returns the cudaError_t of the launches.
 extern "C" int ofdm_pilot_ls(const void* y_re, const void* y_im, int in_int16,
                              int aligned, long long stride_k, long long stride_a,
                              float scale, int K, int A, int F, int clusters, int teams,
                              int rows, long long smem, const float* x_re,
                              const float* x_im, const float* tw, float* h_re,
                              float* h_im, float* inv, int invert, float* scratch, int chunk,
-                             void* stream) {
+                             unsigned* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 8192) {
+    if (K < 1 || K > 65535 || A < 1 || clusters != ofdm::row_rows(A) * ofdm::kRowBlocks ||
+        teams != 1 || rows != 1 || smem != static_cast<long long>(ofdm::row_pilot_smem_bytes()) ||
+        counters == nullptr || (A > ofdm::row_rows(A) && scratch == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(
+        in_int16 ? ofdm::row_pilot<int16_t>(y_re, y_im, stride_k, stride_a, scale, K, A, x_re,
+                                            x_im, tw, h_re, h_im, inv, invert, scratch, counters,
+                                            st)
+                 : ofdm::row_pilot<float>(y_re, y_im, stride_k, stride_a, scale, K, A, x_re,
+                                          x_im, tw, h_re, h_im, inv, invert, scratch, counters,
+                                          st));
+  }
   if (F == 16384 || F == 32768) {
     if (K < 1 || A < 1 ||
         !ofdm::pilot_plan_ok(A, clusters, teams, rows, ofdm::split::kMaxTeams) ||

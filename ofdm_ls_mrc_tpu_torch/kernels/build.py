@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # the stream included, is a c_void_p so none is cut to 32 bits.
 SIGNATURES = {
     "ofdm_pilot_ls": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I, _I, _I, _I, _LL,
-                      _P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+                      _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P),
     "ofdm_fft_mrc": (_P, _P, _I, _I, _LL, _LL, _LL, _F, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "ofdm_mrc_demod": (_P, _P, _I, _I, _LL, _LL, _F, _I, _I, _I,
@@ -49,7 +49,7 @@ SIGNATURES = {
     "ofdm_pilot_ls_bf16": (_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                            _P, _P, _P, _I, _P),
     "ofdm_fft_mrc_bf16": (_P, _P, _I, _LL, _LL, _LL, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "ofdm_io_auto": (_P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P),
     "ofdm_io_manual": (_P, _P, _I, _I, _I, _P, _P, _I, _F, _I, _I, _I, _P, _P, _P),
 }

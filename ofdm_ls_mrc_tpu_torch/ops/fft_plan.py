@@ -150,6 +150,10 @@ def team_floats(f: int) -> int:
 
 PILOT_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 MAX_CLUSTER = 8             # the portable thread block cluster size
+PILOT_ROW_FFT = 8192        # the pilot's size run as blocks per antenna row
+PILOT_ROW_BLOCKS = 4        # ... a row's blocks: columns 32 r .. 32 r + 31 and rows k1 16 r .. + 15
+PILOT_ROW_K1 = 16           # ... rows k1 of a block's 128-point FFTs
+PILOT_ROW_MAX_ROWS = 4      # ... rows a cluster holds, at most (16 blocks, past the portable 8)
 SMS = 132                   # streaming multiprocessors of an H100 SXM: the plans' budget
 SPLIT_PILOT_THREADS_PER_SM = 128   # the split pilot's row-pass threads an SM, at most
 
@@ -164,20 +168,25 @@ class PilotPlan(NamedTuple):
 
 def pilot_team_threads(f: int) -> int:
     """Threads of a pilot team, the unit that takes one antenna row: the
-    register FFT's T, or at the split sizes the 8 lanes of each of the row
-    pass block's SPLIT_K1 rows (``split_teams``)."""
+    register FFT's T, at the split sizes the 8 lanes of each of the row
+    pass block's SPLIT_K1 rows (``split_teams``), at PILOT_ROW_FFT the whole
+    block (a block takes its share of one row)."""
+    if f == PILOT_ROW_FFT:
+        return SPLIT_COLUMN_THREADS
     return SPLIT_K1 * plan(SPLIT_N2).threads if f in SPLIT_FFT_SIZES else plan(f).threads
 
 
 def pilot_max_threads(f: int) -> int:
     """Most threads a pilot block holds: 128, or two teams where a team is
-    more than 64 threads (F = 4096), but no more than 256 (F = 8192: one
-    team of 256); at the split sizes the row pass's SPLIT_TEAMS teams.
+    more than 64 threads (F = 4096: 256); at PILOT_ROW_FFT a block of a
+    row's four (256); at the split sizes the row pass's SPLIT_TEAMS teams.
     csrc/pilot_ls.cu pilot_max_threads holds the same rule (its
     __launch_bounds__)."""
     if f in SPLIT_FFT_SIZES:
         return SPLIT_TEAMS * pilot_team_threads(f)
-    return min(256, max(128, 2 * plan(f).threads))
+    if f == PILOT_ROW_FFT:
+        return SPLIT_COLUMN_THREADS
+    return max(128, 2 * plan(f).threads)
 
 
 def pilot_smem_bytes(f: int, teams: int) -> int:
@@ -185,9 +194,15 @@ def pilot_smem_bytes(f: int, teams: int) -> int:
     sum over its teams (F floats; a block of one team sums into its first
     buffer); the pilot reads the pass twiddles through L1, not from shared
     memory.  At the split sizes the row pass's buffers (``split_smem_bytes``),
-    then X of the block's SPLIT_K1 x 128 bins (two planes)."""
+    then X of the block's SPLIT_K1 x 128 bins (two planes).  At PILOT_ROW_FFT
+    the column buffers of the block's 32 columns (its row's blocks read
+    them), one 8-lane team buffer for each of its PILOT_ROW_K1 rows k1, then
+    |h|^2 of its PILOT_ROW_K1 x 128 bins (the cluster reads them)."""
     if f in SPLIT_FFT_SIZES:
         return split_smem_bytes(teams) + 4 * 2 * SPLIT_K1 * SPLIT_N2
+    if f == PILOT_ROW_FFT:
+        return (split_column_smem_bytes(f // SPLIT_N2) + 4 * PILOT_ROW_K1 * team_floats(SPLIT_N2)
+                + 4 * PILOT_ROW_K1 * SPLIT_N2)
     return 4 * (teams * team_floats(f) + 2 * f + (f if teams > 1 else 0))
 
 
@@ -206,6 +221,10 @@ def pilot_plan(antennas: int, f: int, frames: int = 1) -> PilotPlan:
     16 clusters of 8 blocks x 2 teams, 16 x 32768 32 of 2 x 4 teams of 2
     rows).  In
     both, every block gets a row, and no team slot is idle for a whole row.
+    F = PILOT_ROW_FFT (8192) takes PILOT_ROW_BLOCKS blocks for each antenna
+    row and a cluster of ``pilot_row_rows`` rows (grid (4 A, K)):
+    (clusters, teams, rows) = (4 G, 1, 1), the sum over the antennas a tree
+    through the cluster and across the clusters (``pilot_rank_bins``).
     Raises for a shape the kernel cannot launch."""
     if f not in PILOT_FFT_SIZES:
         raise ValueError(f"pilot_plan: F={f} not in {PILOT_FFT_SIZES}")
@@ -215,6 +234,9 @@ def pilot_plan(antennas: int, f: int, frames: int = 1) -> PilotPlan:
         raise ValueError(f"pilot_plan: {frames} frames")
     if f in SPLIT_FFT_SIZES:
         return _pilot_plan(antennas, f, split_pilot_clusters(antennas, f, frames))
+    if f == PILOT_ROW_FFT:
+        return PilotPlan(PILOT_ROW_BLOCKS * pilot_row_rows(antennas), 1, 1, SPLIT_COLUMN_THREADS,
+                         pilot_smem_bytes(f, 1))
     cap = pilot_max_threads(f) // pilot_team_threads(f)
     return _pilot_plan(antennas, f, min(MAX_CLUSTER, -(-antennas // cap)))
 
@@ -251,17 +273,44 @@ def split_pilot_clusters(antennas: int, f: int, frames: int = 1) -> int:
     return c
 
 
+def pilot_row_rows(antennas: int) -> int:
+    """Antenna rows of one PILOT_ROW_FFT cluster: 4, 2 or 1, the largest
+    dividing A (the grid's clusters take every row once).  Its blocks of one
+    rank add their rows' |h|^2 in distributed shared memory; A / G clusters'
+    partials ([K, A / G, F] float32 in the pilot's scratch, where A > G)
+    are added by the last of them to count in."""
+    return 4 if antennas % 4 == 0 else 2 if antennas % 2 == 0 else 1
+
+
+def pilot_row_counts(frames: int) -> int:
+    """Counts of the PILOT_ROW_FFT pilot's sum, [K, PILOT_ROW_BLOCKS
+    PILOT_ROW_MAX_ROWS]: one for each block slot of a cluster."""
+    return frames * PILOT_ROW_BLOCKS * PILOT_ROW_MAX_ROWS
+
+
 def pilot_team_rows(antennas: int, p: PilotPlan, rank: int, team: int) -> range:
     """Antenna rows of team ``team`` of block ``rank``: g, g + C teams, ...
     below A, g = rank * teams + team (the kernel's row loop)."""
     return range(rank * p.teams + team, antennas, p.clusters * p.teams)
 
 
-def pilot_rank_bins(f: int, clusters: int, rank: int) -> range:
+def pilot_rank_bins(f: int, clusters: int, rank: int):
     """Bins whose sum over the cluster's blocks rank ``rank`` adds up (from
     the blocks' shared memory) and whose inv it writes: [rank F / C,
     (rank + 1) F / C).  At the split sizes the cluster holds SPLIT_K1 x 128
-    bins (``split_pilot_rank_bins``)."""
+    bins (``split_pilot_rank_bins``).  At PILOT_ROW_FFT ``rank`` is a
+    cluster's block slot 4 i + r (row i, block r): the i-th of the cluster's
+    G rows' share of block r's bins (k1 + 64 k2 for k1 in [16 r, 16 r +
+    16)), entries e of [i E, (i + 1) E), E = 2048 / G, bin 64 (e // 16) +
+    16 r + e % 16, whose sum over the cluster's rows it adds in distributed
+    shared memory and, the last of its slot across the clusters, over them
+    (``pilot_row_rows``)."""
+    if f == PILOT_ROW_FFT:   # slot = 4 i + r of the cluster: row i's block r
+        n1 = f // SPLIT_N2
+        r, i = rank % PILOT_ROW_BLOCKS, rank // PILOT_ROW_BLOCKS
+        per = PILOT_ROW_K1 * SPLIT_N2 * PILOT_ROW_BLOCKS // clusters
+        e = np.arange(per * i, per * (i + 1))
+        return n1 * (e // PILOT_ROW_K1) + PILOT_ROW_K1 * r + e % PILOT_ROW_K1
     return range(rank * f // clusters, (rank + 1) * f // clusters)
 
 
@@ -293,16 +342,17 @@ def split_pilot_rank_bins(f: int, clusters: int, rank: int, group: int) -> np.nd
 #      antennas need no other block; the pilot spreads the antennas of its
 #      SPLIT_K1 bins k1 over a cluster (``pilot_plan``,
 #      ``split_pilot_rank_bins``).
-# The exact kernels run both passes at F = 16384 and 32768; the speed
+# The exact kernels run both passes at F = 16384 and 32768 (the exact pilot
+# at 8192 too, across a cluster per antenna row: ``pilot_plan``); the speed
 # kernels run the column pass at F = 8192 to 32768 and their bf16 stage 2
-# in place of the row pass.  The pilots and the speed kernels take the
-# symbols (frames) in chunks (``split_chunk``), each the column pass then
-# the row pass on one scratch [2, chunk, A, F].  The two exact data kernels
-# (fft_mrc, mrc_demod) run both passes in one persistent launch whose tiles
-# (a column tile: one column-pass block's columns of one antenna row; a row
-# tile: SPLIT_K1 bins k1 of one symbol) are taken by ticket in the order of
-# ``ring_ticket`` and meet in a ring of ``split_ring`` symbol slots,
-# [2, slots, A, F], that L2 holds.
+# in place of the row pass.  The split pilots take the frames in chunks
+# (``split_chunk``), each the column pass then the row pass on one scratch
+# [2, chunk, A, F].  The data kernels (fft_mrc, mrc_demod; the bf16
+# fft_mrc_bf16) run both passes in one persistent launch whose tiles (a
+# column tile: one column-pass block's columns of one antenna row; a row
+# tile: SPLIT_K1 bins k1 of one symbol, the bf16 kernel's SPEED_RING_K1)
+# are taken by ticket in the order of ``ring_ticket`` and meet in a ring of
+# ``split_ring`` symbol slots, [2, slots, A, F], that L2 holds.
 
 SPLIT_FFT_SIZES = (16384, 32768)           # the exact kernels' two-pass sizes
 SPEED_SPLIT_SIZES = (8192, 16384, 32768)   # the speed kernels' (n1 = 64 to 256)
@@ -313,6 +363,7 @@ SPLIT_COLUMN_THREADS = 256   # threads of a column-pass block
 SPLIT_SCRATCH_BYTES = 512 << 20  # a chunk's scratch: at most this much, one symbol at least
 SPLIT_RING_BYTES = 40 << 20      # the data kernels' ring: its share of the H100's 50 MB L2
 SPLIT_RING_MIN_SLOTS = 8         # slots the share must hold for the ring to stay in L2
+SPEED_RING_L2_ANTENNAS = 16      # the bf16 ring stays in L2 up to this many antennas
 SPLIT_RING_BLOCKS = 2            # ring-kernel blocks an SM (__launch_bounds__)
 SPLIT_RING_LAG_BLOCKS = 2.0      # the lag's ticket distance, in blocks of the grid
 H100_SMS = 132
@@ -375,47 +426,66 @@ def split_tables(f: int, int16: bool, device: torch.device) -> torch.Tensor:
 
 
 def split_chunk(items: int, antennas: int, f: int) -> int:
-    """Frames (the pilots) or symbols (the speed data kernel) of one chunk
-    of the chunked split form: as many as a scratch of SPLIT_SCRATCH_BYTES
-    holds, at least one, no more than there are.  With the passes as two
-    launches a chunk, fewer, larger launches beat a scratch small enough for
-    L2: a 16 x 32768 frame in chunks of 8 symbols (a 32 MB scratch) took
-    1.24x the time of one chunk of 100 on an H100, the card draining
-    between the launches (PERF.md, the split form).  The exact data kernels
-    keep their scratch in L2 without that cost: one launch, ``split_ring``."""
+    """Frames of one chunk of the split pilots' chunked form: as many as a
+    scratch of SPLIT_SCRATCH_BYTES holds, at least one, no more than there
+    are.  With the passes as two launches a chunk, fewer, larger launches
+    beat a scratch small enough for L2: a 16 x 32768 frame in chunks of 8
+    symbols (a 32 MB scratch) took 1.24x the time of one chunk of 100 on an
+    H100, the card draining between the launches (PERF.md, the split form).
+    The data kernels keep theirs in L2 without that cost: one launch,
+    ``split_ring``."""
     return max(1, min(items, SPLIT_SCRATCH_BYTES // (antennas * f * 8)))
 
 
-def split_ring_tiles(antennas: int, f: int) -> Tuple[int, int]:
+def split_ring_tiles(antennas: int, f: int, k1: int = SPLIT_K1) -> Tuple[int, int]:
     """(column tiles, row tiles) of one symbol in the data kernels' ring:
-    A x 128 / C column groups (``split_columns``), n1 / SPLIT_K1 bin groups."""
+    A x 128 / C column groups (``split_columns``), n1 / k1 bin groups (k1
+    bins k1 a row tile: the exact kernels' SPLIT_K1 = 8, the bf16 kernel's
+    SPEED_RING_K1 = 32; csrc/fft_split.cuh ring_row_tiles)."""
     n1, n2 = split_factors(f)
-    return antennas * (n2 // split_columns(n1)), n1 // SPLIT_K1
+    return antennas * (n2 // split_columns(n1)), n1 // k1
 
 
-def split_ring(items: int, antennas: int, f: int, sms: int = H100_SMS) -> Tuple[int, int]:
-    """(slots R, lag L) of the exact data kernels' ring over ``items``
-    symbols of A rows at F (csrc/fft_split.cuh ring_loop).
+def split_ring_bytes_per_value(k1: int) -> int:
+    """Bytes of a ring value: float32 for the exact kernels' rings (k1 =
+    SPLIT_K1), bf16 for the bf16 kernel's (its column tiles round B to bf16
+    as they store it, the rounding its stage 2 takes anyway)."""
+    return 4 if k1 == SPLIT_K1 else 2
 
-    Where SPLIT_RING_BYTES holds SPLIT_RING_MIN_SLOTS [2, A, F] float32
-    symbol slots or more (16 antennas: 10 at 32768, 20 at 16384), R is as
-    many as it holds and the ring stays in L2; L is the steps between a
-    symbol's column tiles and its row tiles, enough tickets (ring_ticket)
-    for SPLIT_RING_LAG_BLOCKS times the grid (SPLIT_RING_BLOCKS an SM of
-    ``sms``) that a row tile seldom waits for its columns, at most R // 2 so
-    that a column tile as seldom waits for its slot.  Where it holds fewer
-    (64 antennas: 2 at 32768, 5 at 16384), a row tile's 16 rows a team
-    outlast the few steps a slot has: 2 slots measured 4.1x the two-launch
-    form's time at 64 x 32768 on an H100, 8 slots at lag 1 still 1.4x, the
-    row tiles waiting for their columns (PERF.md).  There the ring takes as
-    many slots as the chunked form's SPLIT_SCRATCH_BYTES and leaves L2 for
-    device memory, with L = R // 2.  R is never more than there are
+
+def split_ring(items: int, antennas: int, f: int, sms: int = H100_SMS,
+               k1: int = SPLIT_K1) -> Tuple[int, int]:
+    """(slots R, lag L) of the data kernels' ring over ``items`` symbols of
+    A rows at F with row tiles of ``k1`` bins k1 (csrc/fft_split.cuh
+    ring_loop: the exact fft_mrc and mrc_demod at F = 16384 and 32768,
+    k1 = SPLIT_K1; the bf16 fft_mrc_bf16 at 8192 to 32768, SPEED_RING_K1).
+
+    Where SPLIT_RING_BYTES holds SPLIT_RING_MIN_SLOTS [2, A, F] symbol
+    slots or more (float32, ``split_ring_bytes_per_value``; 16 antennas: 10
+    at 32768, 20 at 16384; the bf16 ring's 20 / 40 / 80 at 32768 / 16384 /
+    8192), R is as many as it holds and the ring stays in L2; L is the steps
+    between a symbol's column tiles and its row tiles, enough tickets
+    (ring_ticket) for SPLIT_RING_LAG_BLOCKS times the grid
+    (SPLIT_RING_BLOCKS an SM of ``sms``) that a row tile seldom waits for its
+    columns, at most R // 2 so that a column tile as seldom waits for its
+    slot.  Where it holds fewer (64 antennas: 2 at 32768, 5 at 16384), a row
+    tile's 16 rows a team outlast the few steps a slot has: 2 slots measured
+    4.1x the two-launch form's time at 64 x 32768 on an H100, 8 slots at lag
+    1 still 1.4x, the row tiles waiting for their columns (PERF.md).  There
+    the ring takes as many slots as the chunked form's SPLIT_SCRATCH_BYTES
+    and leaves L2 for device memory, with L = R // 2.  The bf16 row tile
+    (k1 = SPEED_RING_K1) takes its antennas one after another on one
+    warpgroup, so it holds its slot for A antenna products: past
+    SPEED_RING_L2_ANTENNAS antennas (64 x 8192: 20 slots in the share) it
+    takes the device-memory ring too.  R is never more than there are
     symbols, L at least 1; the kernel needs L <= items and, where a slot is
     reused (items > R), L < R: its C entry refuses any other pair."""
-    slot = 2 * antennas * f * 4
-    if SPLIT_RING_BYTES // slot >= SPLIT_RING_MIN_SLOTS:
+    slot = 2 * antennas * f * split_ring_bytes_per_value(k1)
+    in_l2 = SPLIT_RING_BYTES // slot >= SPLIT_RING_MIN_SLOTS and (
+        k1 == SPLIT_K1 or antennas <= SPEED_RING_L2_ANTENNAS)
+    if in_l2:
         slots = max(1, min(items, SPLIT_RING_BYTES // slot))
-        ct, rt = split_ring_tiles(antennas, f)
+        ct, rt = split_ring_tiles(antennas, f, k1)
         want = math.ceil(SPLIT_RING_LAG_BLOCKS * SPLIT_RING_BLOCKS * sms / (ct + rt))
         return slots, max(1, min(want, slots // 2))
     slots = max(1, min(items, SPLIT_SCRATCH_BYTES // slot))
@@ -476,12 +546,18 @@ def split_ring_smem_bytes(f: int) -> int:
 # chunks are spread over a cluster of ``speed_cluster`` blocks.
 #
 # From n1 = 64 (F = 8192) a thread's column of n1 values no longer fits the
-# chunk's registers: stage 1 is the split form's column pass (exact float32,
-# into a scratch), and a block of one warpgroup takes SPEED_ROWS_K1 bins k1
-# of one symbol, a chunk of 32 complex rows of each antenna in turn (row
-# r = a n1 + k1, so chunk c is still rows 32 c .. 32 c + 31).  The data path
-# sums over the antennas in its registers and needs no cluster; the pilot
-# spreads the antennas over a cluster of ``speed_cluster`` blocks (rank r
+# chunk's registers: stage 1 is the split form's column pass (exact float32),
+# and stage 2 takes SPEED_ROWS_K1 bins k1 of one symbol, a chunk of 32
+# complex rows of each antenna in turn (row r = a n1 + k1, so chunk c is
+# still rows 32 c .. 32 c + 31).  The data path runs both as one persistent
+# launch on the exact kernels' ring (``split_ring`` with SPEED_RING_K1-bin
+# row tiles, ``speed_ring_smem_bytes``): the column tiles store B rounded to
+# bf16 into the slot, a row tile takes two antennas' 16 rows k1 a chunk by
+# TMA into the swizzled tile while the last pair multiplies, and each of
+# its two warpgroups (SPEED_ROWS_THREADS threads) multiplies two quarters
+# and sums over the antennas in its registers, so it needs no cluster; the
+# pilot runs the column pass into a
+# scratch and spreads the antennas over a cluster of ``speed_cluster`` blocks (rank r
 # takes antennas r, r + CL, ..., its two warpgroups in turn, a tile each),
 # adds sum |h|^2 over it in distributed
 # shared memory (``speed_pilot_rank_bins``) and copies W once a cluster, by
@@ -497,9 +573,10 @@ SPEED_QUARTERS = 4          # stage 2 in four products of 32 bins k2
 SPEED_DATA_CLUSTER = 2      # blocks a data symbol is spread over, at most
 SPEED_PILOT_CLUSTER = 8     # blocks a pilot is spread over, at most
 SPEED_THREADS = {False: 384, True: 256}  # data / pilot: warpgroup 0 the product, the rest stage 1
-SPEED_ROWS_THREADS = 128    # n1 >= 64: one warpgroup a block (the row pass of the split form)
+SPEED_ROWS_THREADS = 128    # n1 >= 64: the data path's math warpgroup (its fragments' bins)
 SPEED_PILOT_ROWS_THREADS = 256  # n1 >= 64, the pilot: two warpgroups, antennas in turn
 SPEED_ROWS_K1 = 32          # n1 >= 64: bins k1 of a block, one chunk of each antenna
+SPEED_RING_K1 = 16          # the bf16 ring's row tile: bins k1, two antennas a chunk (kRingK1)
 SPEED_SBO = 1024            # bytes between 8-row groups of a SW128 K-major operand
 
 
@@ -652,16 +729,33 @@ def speed_smem_bytes(f: int, pilot: bool) -> int:
     Smem): W and two tiles; the data path's two row stages and two h
     stages (32 KB each), or the pilot's h staging ([32][132] x 2 planes) and
     X with 1/|X|^2; 10 barrier slots; 1 KB of alignment slack.  From
-    F = 8192 (the split form's row pass): W and one tile, 1 KB of slack, and
-    for the pilot a second tile (two warpgroups), X / |X|^2 of its 32 x 128
-    bins (two planes of 128 rows of 32 + 4 floats), a row stage for each
-    warpgroup (32 KB) and the barrier of W's multicast (16 bytes)."""
+    F = 8192 the data path's ring block (``speed_ring_smem_bytes``); the
+    pilot's row pass: W, two tiles (two warpgroups), 1 KB of slack, X /
+    |X|^2 of its 32 x 128 bins (two planes of 128 rows of 32 + 4 floats), a
+    row stage for each warpgroup (32 KB) and the barrier of W's multicast
+    (16 bytes)."""
+    if f in SPEED_SPLIT_SIZES and not pilot:
+        return speed_ring_smem_bytes(f)
     if f in SPEED_SPLIT_SIZES:
         tile = SPEED_TILE_ROWS * SPEED_N2 * 2
         stages = 2 * 2 * SPEED_CHUNK_ROWS * SPEED_N2 * 4
-        return SPEED_W_ROWS * SPEED_N2 * 2 + tile + 1024 + (
-            tile + 2 * SPEED_N2 * (SPEED_ROWS_K1 + 4) * 4 + stages + 16 if pilot else 0)
+        return (SPEED_W_ROWS * SPEED_N2 * 2 + 2 * tile + 1024
+                + 2 * SPEED_N2 * (SPEED_ROWS_K1 + 4) * 4 + stages + 16)
     base = SPEED_W_ROWS * SPEED_N2 * 2 + 2 * SPEED_TILE_ROWS * SPEED_N2 * 2
     stage = 2 * SPEED_CHUNK_ROWS * SPEED_N2 * 4
     mid = 2 * SPEED_CHUNK_ROWS * SPEED_PART_STRIDE * 4 + 12 * f if pilot else 4 * stage
     return base + mid + 10 * 8 + 1024
+
+
+def speed_ring_smem_bytes(f: int) -> int:
+    """Dynamic shared memory of a bf16 ring block at F = 8192 to 32768
+    (csrc/fft_mrc_bf16.cu RingSmem): the column tile's buffers
+    (``split_column_smem_bytes``) overlaid on the row tile's two bf16 tiles,
+    rounded up to the 1 KB swizzle atom; W's image (64 KB); the pass
+    twiddles of both FFTs (as ``split_ring_smem_bytes``); five barriers
+    (full, empty, W in); 1 KB of alignment slack."""
+    n1, n2 = speed_split(f)
+    tiles = 2 * SPEED_TILE_ROWS * SPEED_N2 * 2
+    region = -(-max(split_column_smem_bytes(n1), tiles) // 1024) * 1024
+    twiddles = len(pass_twiddles_np(n1)) + len(pass_twiddles_np(n2))
+    return region + SPEED_W_ROWS * SPEED_N2 * 2 + 8 * twiddles + 5 * 8 + 1024

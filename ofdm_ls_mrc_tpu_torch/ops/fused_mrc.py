@@ -22,6 +22,7 @@ import torch
 
 from ..kernels import build
 from . import fft as fft_ops
+from . import fft_plan
 from . import mrc as mrc_ops
 from .cplx import CArray
 from .pipeline import (_check_dense, _check_rows, _device_route, _exact_table, _ptr,
@@ -78,7 +79,8 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
     lib = build.load_library()
     st = y.re.stride()
     with torch.cuda.device(dev):
-        ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd), dev)
+        ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd), dev,
+                                                 fft_plan.SPLIT_K1)
         err = lib.ofdm_mrc_demod(
             y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
             int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,

@@ -26,11 +26,13 @@ the largest FFT of a public OFDM standard (DVB-T2's 32K mode).
 
 F = 16384 and 32768 (the exact kernels) and F = 8192 to 32768 (the speed
 kernels) run in the split form of ``fft_plan`` (``csrc/fft_split.cuh``): a
-column pass and each kernel's own row pass.  The pilots and the speed data
-kernel run them as launches over chunks of a scratch in device memory; the
-exact data kernel as one persistent launch whose column and row tiles meet
-in a ring of symbol slots that L2 holds (``fft_plan.split_ring``).  One
-wrapper call, one count.
+column pass and each kernel's own row pass.  The pilots run them as
+launches over chunks of a scratch in device memory; the data kernels
+(exact and bf16) as one persistent launch whose column and row tiles meet
+in a ring of symbol slots that L2 holds (``fft_plan.split_ring``).  The
+exact pilot at F = 8192 is one launch of a thread block cluster per antenna
+row, the F = 64 x 128 split across the cluster (``fft_plan.pilot_plan``).
+One wrapper call, one count.
 
 The pilot takes ``invert=False`` for the sharded receivers
 (``parallel/``): it then returns the antenna shard's sum_a |h|^2 itself,
@@ -80,6 +82,10 @@ SPEED_SPLIT_SIZES = fft_plan.SPEED_SPLIT_SIZES       # the speed kernels'
 
 launch_counts: Dict[str, int] = {"pilot_ls": 0, "fft_mrc": 0, "pilot_ls_sum": 0,
                                  "pilot_ls_bf16": 0, "fft_mrc_bf16": 0}
+# The F = 8192 pilot's per-frame counts, by (device, stream): zero between
+# launches (the kernel sets each count it uses back to 0), so the launches of
+# a stream, each after the last, share one buffer.
+_pilot_counts: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -248,8 +254,11 @@ def _rows_aligned(x: CArray) -> bool:
 def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                          exact: bool = True) -> Tuple[CArray, torch.Tensor]:
     """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``: one launch, one
-    thread block cluster per frame (at F = 16384 and 32768 the column pass,
-    then a cluster per 8 bins k1 of a frame, ``fft_plan.pilot_plan``); with
+    thread block cluster per frame (at F = 8192 four blocks per antenna row,
+    a cluster of up to four rows, the sum over the antennas through
+    distributed shared memory and per-frame counts; at F = 16384 and 32768 the
+    column pass, then a cluster per 8 bins k1 of a frame,
+    ``fft_plan.pilot_plan``); with
     ``exact=False`` the speed kernel ``pilot_ls_bf16``
     (``csrc/fft_mrc_bf16.cu``), a cluster per frame too (from F = 8192 the
     column pass, then a cluster per 32 bins k1, ``fft_plan.speed_cluster``).
@@ -300,13 +309,21 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
         if exact:
             name = "pilot_ls" if invert else "pilot_ls_sum"
             plan = fft_plan.pilot_plan(a, f, k)
+            rows = f == fft_plan.PILOT_ROW_FFT   # a cluster per row: the split table, counts
+            counts = None
+            if rows:
+                counts = _pilot_counters(fft_plan.pilot_row_counts(k), dev, stream)
+                clusters = a // fft_plan.pilot_row_rows(a)
+                if clusters > 1:   # the sum's partials, one a cluster of rows
+                    scratch = torch.empty((k, clusters, f), dtype=torch.float32, device=dev)
+            tw = fft_plan.split_tables(f, False, dev) if rows else _exact_table(f, dev)
             err = lib.ofdm_pilot_ls(
                 p.re.data_ptr(), p.im.data_ptr(), int(int16),
                 int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
                 plan.clusters, plan.teams, plan.rows, plan.smem_bytes,
-                x_full.re.data_ptr(), x_full.im.data_ptr(), _exact_table(f, dev).data_ptr(),
+                x_full.re.data_ptr(), x_full.im.data_ptr(), tw.data_ptr(),
                 h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), int(invert),
-                _ptr(scratch), chunk, stream)
+                _ptr(scratch), chunk, _ptr(counts), stream)
         else:
             name = "pilot_ls_bf16"
             tw, w = _speed_tables(f, int16, dev)
@@ -327,7 +344,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
                    exact: bool = True) -> CArray:
     """FFT + MRC + equalize over data symbols, kernel ``csrc/fft_mrc.cu``;
     with ``exact=False`` the speed kernel ``fft_mrc_bf16``
-    (``csrc/fft_mrc_bf16.cu``: stage 2 on the tensor cores in bf16).
+    (``csrc/fft_mrc_bf16.cu``: stage 2 on the tensor cores in bf16; from
+    F = 8192 one launch on the ring, its row tiles 32 bins k1).
 
     Args:
       y:   [S, A, F] or [K, S, A, F] time-domain data rows, f32 or int16;
@@ -359,7 +377,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     with torch.cuda.device(dev):
         if exact:
             name = "fft_mrc"
-            ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev)
+            ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev,
+                                                     fft_plan.SPLIT_K1)
             err = lib.ofdm_fft_mrc(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16),
                 int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
@@ -371,13 +390,16 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
             if any(t.data_ptr() % 16 for t in (h.re, h.im)):
                 raise ValueError("fused_pipeline(exact=False): h planes must start 16-byte "
                                  "aligned (the kernel copies h rows in bulk)")
-            scratch, chunk = _split_scratch(k * s, a, f, SPEED_SPLIT_SIZES, dev)
+            ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im), dev,
+                                                     fft_plan.SPEED_RING_K1)
             tw, w = _speed_tables(f, int16, dev)
+            split = f in SPEED_SPLIT_SIZES   # the ring's row tiles take W's image
+            img = fft_plan.speed_w_image(dev) if split else None
             err = lib.ofdm_fft_mrc_bf16(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16), st[0], st[1], st[2], k, s, a,
                 f, h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(),
-                w.data_ptr(), out.re.data_ptr(), out.im.data_ptr(), _ptr(scratch), chunk,
-                stream)
+                None if split else w.data_ptr(), _ptr(img), out.re.data_ptr(),
+                out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
     build.check(lib, err, name)
     launch_counts[name] += 1
     return out[0] if single else out
@@ -416,40 +438,56 @@ def _exact_table(f: int, dev: torch.device) -> torch.Tensor:
 def _split_scratch(items: int, a: int, f: int, sizes,
                    dev: torch.device) -> Tuple[Optional[torch.Tensor], int]:
     """(scratch [2, chunk, A, F] float32, chunk) of the chunked split form's
-    two passes over ``items`` symbols (the pilot: frames) of A rows where the
-    kernel runs that form at F (``sizes``: SPLIT_FFT_SIZES for the exact
-    pilots, SPEED_SPLIT_SIZES for the speed kernels), else (None, 0).  The
-    scratch lives until the caller's last reference goes; the allocator
-    gives it to no later work of the stream before the kernels are done."""
+    two passes over ``items`` frames of A rows where the pilot runs that
+    form at F (``sizes``: SPLIT_FFT_SIZES for the exact pilot,
+    SPEED_SPLIT_SIZES for the speed pilot), else (None, 0).  The scratch
+    lives until the caller's last reference goes; the allocator gives it to
+    no later work of the stream before the kernels are done."""
     if f not in sizes:
         return None, 0
     chunk = fft_plan.split_chunk(items, a, f)
     return torch.empty((2, chunk, a, f), dtype=torch.float32, device=dev), chunk
 
 
-def _split_ring(items: int, a: int, f: int, estimate, dev: torch.device
+def _split_ring(items: int, a: int, f: int, estimate, dev: torch.device, k1: int
                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], int, int]:
-    """(ring [2, slots, A, F] float32, counters [1 + 2 items] int32 zeroed,
-    slots, lag) of the exact data kernels' one-launch split form over
-    ``items`` symbols of A rows (``fft_plan.split_ring``: a ring of at most
-    SPLIT_RING_BYTES, which L2 holds; the counters are the launch's ticket
-    and each symbol's column tiles and row tiles done), where the kernel
-    runs it at F (16384, 32768), else (None, None, 0, 0).  The row tiles
-    copy the ``estimate`` tensors (h's planes and the gains, inv or hsqrd)
-    in 16-byte pieces: each must start 16-byte aligned.  As
-    ``_split_scratch``, the tensors live until the caller's last reference
-    goes, and the stream orders later work after the kernel."""
-    if f not in SPLIT_FFT_SIZES:
+    """(ring [2, slots, A, F] (float32; the bf16 kernel's bf16), counters
+    [1 + 2 items] int32 zeroed, slots, lag) of a data kernel's one-launch
+    split form over ``items``
+    symbols of A rows (``fft_plan.split_ring`` with row tiles of ``k1`` bins
+    k1: a ring of at most SPLIT_RING_BYTES, which L2 holds; the counters are
+    the launch's ticket and each symbol's column tiles and row tiles done),
+    where the kernel runs it at F (the exact kernels, k1 = SPLIT_K1: 16384
+    and 32768; the bf16 kernel, SPEED_RING_K1: 8192 to 32768), else (None,
+    None, 0, 0).  The row tiles copy the ``estimate`` tensors (h's planes and
+    the exact kernels' gains, inv or hsqrd) in 16-byte pieces: each must
+    start 16-byte aligned.  As ``_split_scratch``, the tensors live until the
+    caller's last reference goes, and the stream orders later work after the
+    kernel."""
+    if f not in (SPLIT_FFT_SIZES if k1 == fft_plan.SPLIT_K1 else SPEED_SPLIT_SIZES):
         return None, None, 0, 0
     if any(t.data_ptr() % 16 for t in estimate):
-        raise ValueError("the exact kernels at F = 16384 and 32768 copy the estimate in "
-                         "16-byte pieces: its planes and gains must start 16-byte aligned")
+        raise ValueError(f"the data kernels at F = {f} copy the estimate in 16-byte pieces: "
+                         "its planes and gains must start 16-byte aligned")
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else fft_plan.H100_SMS)
-    slots, lag = fft_plan.split_ring(items, a, f, sms)
-    ring = torch.empty((2, slots, a, f), dtype=torch.float32, device=dev)
+    slots, lag = fft_plan.split_ring(items, a, f, sms, k1)
+    dtype = torch.float32 if fft_plan.split_ring_bytes_per_value(k1) == 4 else torch.bfloat16
+    ring = torch.empty((2, slots, a, f), dtype=dtype, device=dev)
     counters = torch.zeros(1 + 2 * items, dtype=torch.int32, device=dev)
     return ring, counters, slots, lag
+
+
+def _pilot_counters(n: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros: the F = 8192 pilot's counts on ``stream``
+    (``_pilot_counts``, ``fft_plan.pilot_row_counts``; a larger buffer
+    where a launch needs more)."""
+    key = (dev.index, stream)
+    buf = _pilot_counts.get(key)
+    if buf is None or buf.numel() < n or buf.device != dev:
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        _pilot_counts[key] = buf
+    return buf
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

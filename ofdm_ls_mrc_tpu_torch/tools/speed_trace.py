@@ -53,8 +53,7 @@ def traced_library(cluster: int) -> ctypes.CDLL:
                         str(build.CSRC_DIR / "fft_split.cu")], check=True)
     lib = ctypes.CDLL(str(out))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ofdm_fft_mrc_bf16.argtypes = (p, p, i, ll, ll, ll, i, i, i, i, p, p, p, p, p, p, p, p, i,
-                                      p)
+    lib.ofdm_fft_mrc_bf16.argtypes = build.SIGNATURES["ofdm_fft_mrc_bf16"]
     lib.ofdm_pilot_ls_bf16.argtypes = (p, p, i, ll, ll, i, i, i, p, p, p, p, p, i, p, p, p, p,
                                        i, p)
     lib.ofdm_speed_trace.argtypes = (p,)
@@ -113,8 +112,8 @@ def main() -> int:
     out = CArray(torch.empty(1, 100, f - 1, device=dev), torch.empty(1, 100, f - 1, device=dev))
     last_of_three(lib, lambda: lib.ofdm_fft_mrc_bf16(
         d.re.data_ptr(), d.im.data_ptr(), 0, 0, d.re.stride(0), d.re.stride(1), 1, 100, 16, f,
-        h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(), w.data_ptr(),
-        out.re.data_ptr(), out.im.data_ptr(), None, 0, stream))
+        h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(), w.data_ptr(), None,
+        out.re.data_ptr(), out.im.data_ptr(), None, 0, 0, None, stream))
     show(lib, f"fft_mrc_bf16, one 16 x {f} x 100 f32 frame")
     ho = CArray(torch.empty(1, 16, f, device=dev), torch.empty(1, 16, f, device=dev))
     io = torch.empty(1, f, device=dev)

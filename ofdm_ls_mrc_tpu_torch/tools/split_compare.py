@@ -8,25 +8,28 @@ On one A x F x 100-symbol frame (A = 16 unless ``--antennas``) (f32 rows, and th
 F = 8192, 16384 and 32768: ``fused_pipeline`` exact (the register FFT at
 8192; above it one launch of ``fft_mrc_ring_kernel``, the column and row
 tiles of the split form on a ring of L2-resident symbol slots, beside the
-zeroing of its counters) and ``exact=False`` (the column pass and
-``speed_rows_kernel``), ``fused_demod`` (``mrc_demod_ring_kernel`` above
-8192) and the pilots (exact, its sum variant, bf16; the split form's column
-pass and ``pilot_ls_rows_kernel`` or ``pilot_rows_kernel``), each time the
-sum of its kernels, each kernel's time and, where a separate column pass
-ran, its and the row pass's shares (torch.profiler device time, the mean
-over n calls of a trace opened with spin kernels that are left out), and
-``torch.fft.fft`` over the same rows beside each frame and pilot.
-``--pilots`` times the pilots alone.  ``--clusters`` times the exact pilot
-at F = 16384 and 32768 with its clusters capped at 1, 2, 4 and 8 blocks
+zeroing of its counters) and ``exact=False`` (one launch of
+``fft_mrc_bf16_ring_kernel``: the same column tiles, storing bf16, and the
+bf16 row tiles of 16 bins k1 fed by TMA), ``fused_demod``
+(``mrc_demod_ring_kernel`` above 8192) and the pilots (exact: at 8192
+``pilot_ls_row_kernel``, a cluster per antenna row, above it the split
+form's column pass and ``pilot_ls_rows_kernel``; its sum variant; bf16:
+the column pass and ``pilot_rows_kernel``), each time the sum of its
+kernels, each kernel's time and, where a separate column pass ran, its and
+the row pass's shares (torch.profiler device time, the mean over n calls of
+a trace opened with spin kernels that are left out), and ``torch.fft.fft``
+over the same rows beside each frame and pilot.  ``--pilots`` times the
+pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
+with its clusters capped at 1, 2, 4 and 8 blocks
 (``fft_plan.split_pilot_clusters`` in place of the plan's choice) and
 nothing else.  ``--chunk N`` caps the chunked split form's symbols (frames)
 a chunk at N in place of ``fft_plan.split_chunk``'s choice: it reaches the
-pilots and the bf16 kernels only.  ``--ring-mb M`` sizes the exact data
-kernels' ring to M MiB in place of ``fft_plan.SPLIT_RING_BYTES``.  It
-imports ``ofdm_ls_mrc_tpu_torch`` by absolute name, so
-``PYTHONPATH=<another checkout>`` times that checkout's package with the
-same calls: two trees in one call on the same card compare in the order
-X Y Y X.  The last line is a JSON object of every time in microseconds.
+split pilots only.  ``--ring-mb M`` sizes the data kernels' rings to M MiB
+in place of ``fft_plan.SPLIT_RING_BYTES``.  It imports
+``ofdm_ls_mrc_tpu_torch`` by absolute name, so ``PYTHONPATH=<another
+checkout>`` times that checkout's package with the same calls: two trees in
+one call on the same card compare in the order X Y Y X.  The last line is a
+JSON object of every time in microseconds.
 """
 
 from __future__ import annotations
@@ -106,10 +109,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chunk", type=int, default=0,
-                    help="symbols (frames) a chunk of the chunked split form, at most: the "
-                         "pilots and the bf16 kernels (default: split_chunk)")
+                    help="frames a chunk of the chunked split form, at most: the split "
+                         "pilots (default: split_chunk)")
     ap.add_argument("--ring-mb", type=int, default=0,
-                    help="MiB of the exact data kernels' ring of symbol slots "
+                    help="MiB of the data kernels' rings of symbol slots "
                          "(default: fft_plan.SPLIT_RING_BYTES)")
     ap.add_argument("--pilots", action="store_true", help="time the pilots alone")
     ap.add_argument("--antennas", type=int, default=ANTENNAS,

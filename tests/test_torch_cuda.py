@@ -189,7 +189,7 @@ def test_pilot_ls_refuses_a_plan_off_its_layout(dev):
             y.re.data_ptr(), y.im.data_ptr(), 0, 1, 0, y.re.stride(0), 1.0, 1, 16, 1024,
             p.clusters, p.teams, p.rows, p.smem_bytes, x_full.re.data_ptr(),
             x_full.im.data_ptr(), tw.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), inv.data_ptr(),
-            1, None, 0, torch.cuda.current_stream(dev).cuda_stream)
+            1, None, 0, None, torch.cuda.current_stream(dev).cuda_stream)
 
     plan = fft_plan.pilot_plan(16, 1024)
     assert launch(plan) == 0

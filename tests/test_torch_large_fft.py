@@ -48,7 +48,8 @@ from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
 from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 from ofdm_ls_mrc_tpu_torch.ops.ls import pad_pilot
 from test_torch_fft_plan import emulate
-from test_torch_speed_mode import chunk_product, fragment, stage1_chunks, w_operand
+from test_torch_speed_mode import (_bf16_bits, chunk_product, fragment, stage1_chunks,
+                                   w_operand)
 
 SIZES = (8192, 16384, 32768)
 DTYPES = ("f32", "int16")
@@ -515,22 +516,20 @@ def test_speed_w_image_is_the_shared_memory_operand():
     np.testing.assert_array_equal(img.view(torch.int16).numpy().view(np.uint16), w_operand())
 
 
-def emulate_speed_rows(x: CArray, f: int, epilogue, cluster: int = 1) -> dict:
-    """fft_mrc_bf16.cu's row pass for one symbol (n1 >= 64): the blocks of
-    group g take bins k1 = 32 g + q, block ``rank`` of its cluster the
-    antennas rank, rank + cluster, ... (the pilot's two warpgroups in turn;
-    the data path: one block, every antenna), each the chunk c = a n1/32 + g
-    of the tile layout
-    (speed_chunk_rows), quarter by quarter through the wgmma mirror (the
-    pilot's W from its multicast image); thread t folds C of its row q at its
+def emulate_speed_rows(x: CArray, f: int, epilogue, cluster: int) -> dict:
+    """fft_mrc_bf16.cu's pilot row pass for one frame (n1 >= 64,
+    pilot_rows_kernel): the blocks of group g take bins k1 = 32 g + q,
+    block ``rank`` of its cluster the antennas rank, rank + cluster, ...
+    (its two warpgroups in turn), each the chunk c = a n1/32 + g of the tile
+    layout (speed_chunk_rows), quarter by quarter through the wgmma mirror
+    against W's multicast image; thread t folds C of its row q at its
     fragment's columns into its sums, and the cluster's sums are added in
     rank order.  Returns {bin: sum over the antennas}."""
     n1, _ = fp.speed_split(f)
     a = x.shape[0]
     groups = n1 // fp.SPEED_ROWS_K1
     tiles = stage1_chunks(x, f)
-    w_mem = (fp.speed_w_image("cpu").view(torch.int16).numpy().view(np.uint16) if cluster > 1
-             else w_operand())
+    w_mem = fp.speed_w_image("cpu").view(torch.int16).numpy().view(np.uint16)
     out = {}
     for g in range(groups):
         blocks = []
@@ -555,15 +554,118 @@ def emulate_speed_rows(x: CArray, f: int, epilogue, cluster: int = 1) -> dict:
     return out
 
 
+# The bf16 ring's tile, as csrc/fft_mrc_bf16.cu lands it by TMA: for pair b
+# of antennas, antenna 2 b + i's run of 32 slot rows (its planes interleaved
+# by 8 rows, fft_split.cuh slot_row) at tile rows 32 i .., tile row m:
+# complex row q = 8 (m // 16) + m % 8 (antenna 2 b + q // 16, k1 = k1_0 + q %
+# 16), plane (m // 8) % 2, each element at speed_swizzle (the 128-byte
+# swizzle); warpgroup w's thread t folds quarters 2 w and 2 w + 1 of complex
+# row q of the tile at its fragment's columns (j, cc): C_re = D[r0, c0] -
+# D[r0 + 8, c0 + 32], C_im = D[r0, c0 + 32] + D[r0 + 8, c0], bin n1 (32 Q +
+# c0) + k1, its antenna's h; the two antennas' threads (t, t + 64) add their
+# sums at the end.
+_M, _K = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+TILE_Q = (8 * (_M // 16) + _M % 8).ravel()
+TILE_PLANE = ((_M // 8) % 2).ravel()
+TILE_COL = _K.ravel()
+TILE_M = _M.ravel()
+TILE_AT = np.array([fp.speed_swizzle(64, m, k) // 2 for m, k in zip(_M.ravel(), _K.ravel())])
+_T, _JC = np.meshgrid(np.arange(128), np.arange(8), indexing="ij")
+FOLD_Q = 8 * (_T // 32) + (_T % 32) // 4
+FOLD_R0 = 16 * (_T // 32) + (_T % 32) // 4
+FOLD_C0 = 8 * (_JC // 2) + 2 * (_T % 4) + _JC % 2
+
+
+def emulate_speed_ring(y: CArray, h: np.ndarray, inv: np.ndarray, slots: int, lag: int):
+    """fft_mrc_bf16_ring_kernel tile by tile in ticket order (ring_ticket
+    with the bf16 row tiles) over the S symbols of one frame y [S, A, F]
+    (f32 or int16): a column tile writes its columns' n1-point DFT times
+    the four-step twiddle (column_twiddles, the sc16 scale folded in),
+    rounded to bf16, into slot s % R; a row tile of 32 bins k1 takes each
+    antenna in turn, its 32 rows of the slot landing in the swizzled tile
+    (TILE_*), then the four quarters through the wgmma mirror against W's
+    image and each warpgroup thread's fold of C conj(h) into its sums; the
+    store is sum * inv in reference order, the DC bin dropped.  Returns
+    (out [S, F-1], the times each tile element was written per antenna)."""
+    s_, a, f = y.shape
+    n1, n2 = fp.speed_split(f)
+    c = fp.split_columns(n1)
+    ct, rt = fp.split_ring_tiles(a, f, fp.SPEED_RING_K1)
+    tw = column_twiddles(f, y.dtype == torch.int16)
+    rows = (y.re.numpy().astype(np.float32) + 1j * y.im.numpy().astype(np.float32)
+            ).astype(np.complex64)
+    w_mem = fp.speed_w_image("cpu").view(torch.int16).numpy().view(np.uint16)
+    # bf16 bits, [R][A][n1 / 8][2][8][128] (fft_split.cuh slot_row): row k1 of
+    # plane p at 16 (k1 // 8) + 8 p + k1 % 8.
+    ring = np.zeros((slots, a, 2 * n1, n2), np.uint16)
+    k1s = np.arange(n1)
+    slot_row = 16 * (k1s // 8) + k1s % 8
+    owner = [-1] * slots
+    out = np.full((s_, f - 1), np.nan, np.complex128)
+    writes = np.zeros(64 * 128, int)
+    jo = pipe.reference_order_index(f)
+    for t in range(s_ * (ct + rt)):
+        column, item, idx = fp.ring_ticket(t, s_, lag, ct, rt)
+        slot = item % slots
+        if column:
+            ant, c0 = idx // (n2 // c), (idx % (n2 // c)) * c
+            x = rows[item, ant].reshape(n1, n2)[:, c0:c0 + c]
+            b = (np.fft.fft(x, axis=0) * tw[:, c0:c0 + c]).astype(np.complex64)
+            ring[slot, ant, slot_row, c0:c0 + c] = _bf16_bits(b.real)
+            ring[slot, ant, slot_row + 8, c0:c0 + c] = _bf16_bits(b.imag)
+            owner[slot] = item
+            continue
+        assert owner[slot] == item
+        k1_0 = fp.SPEED_RING_K1 * idx
+        sums = np.zeros((128, 32), np.complex128)     # thread t of the warpgroups' fragments
+        for pair in range(-(-a // 2)):
+            tile = np.zeros(64 * 128, np.uint16)
+            live = min(2, a - 2 * pair)
+            for i in range(live):
+                run = ring[slot, 2 * pair + i, 2 * k1_0:2 * k1_0 + 32]   # one run of 32 rows
+                m = TILE_M >= 32 * i
+                m &= TILE_M < 32 * (i + 1)
+                tile[TILE_AT[m]] = run[TILE_M[m] - 32 * i, TILE_COL[m]]
+                q = TILE_Q[m]
+                assert np.array_equal(run[TILE_M[m] - 32 * i, TILE_COL[m]], ring[
+                    slot, 2 * pair + i, slot_row[k1_0 + q % 16] + 8 * TILE_PLANE[m], TILE_COL[m]])
+                np.add.at(writes, TILE_AT[m], 1)
+            ant = 2 * pair + FOLD_Q // 16
+            ok = ant < a
+            for quarter in range(4):
+                d = chunk_product(tile, w_mem, quarter)
+                cval = (d[FOLD_R0, FOLD_C0] - d[FOLD_R0 + 8, FOLD_C0 + 32]
+                        + 1j * (d[FOLD_R0, FOLD_C0 + 32] + d[FOLD_R0 + 8, FOLD_C0]))
+                bins = n1 * (32 * quarter + FOLD_C0) + k1_0 + FOLD_Q % 16
+                hv = np.where(ok, h[np.minimum(ant, a - 1), bins], 0)
+                sums[:, 8 * quarter:8 * quarter + 8] += cval * np.conj(hv)
+        first = FOLD_Q[:, 0] < 16
+        total = sums[first] + sums[~first]            # thread t + 64 to thread t
+        bins = (n1 * (32 * (np.arange(32) // 8)[None, :] + FOLD_C0[first][:, np.arange(32) % 8])
+                + k1_0 + FOLD_Q[first][:, :1])
+        eq = np.zeros(f, np.complex128)
+        eq[bins] = total * inv[bins]
+        live_bins = np.isin(jo, bins)
+        out[item, live_bins] = eq[jo[live_bins]]
+    return out, writes
+
+
 @pytest.mark.parametrize("f,a,dtype", [(8192, 2, "f32"), (8192, 3, "int16"), (16384, 1, "int16"),
                                        (32768, 1, "f32"), (32768, 2, "f32")])
 def test_speed_rows_mirror_reproduces_the_plain_versions(f, a, dtype):
-    """The mirror's pilot (h, inv; its antennas over the cluster of
-    speed_cluster) and data store (one block, every antenna) against
-    estimate_pilot_speed_plain and fused_pipeline_speed_plain on the same
-    symbol: only the accumulation order differs (float32, 1e-5)."""
+    """The pilot row pass's mirror (h, inv; its antennas over the cluster of
+    speed_cluster) against estimate_pilot_speed_plain on the same pilot:
+    only the accumulation order differs (float32, 1e-5).  The data path's
+    mirror, the bf16 ring over three symbols on R = 2 slots (every slot
+    rewritten in the launch), against fused_pipeline_speed_plain at the
+    speed kernels' criterion (PERF.md section 2: EVM against the plain
+    version at least SPEED_GAP_DB = 20 dB below the plain version's against
+    the exact path, max-rel < 1e-2: the column twiddles by recurrence, a
+    few ulp off the plain version's table, flip a bf16 rounding now and
+    then), and every tile element is written, each antenna's rows once
+    a row tile."""
     rng = np.random.default_rng(f + a)
-    z = 0.1 * (rng.standard_normal((2, a, f)) + 1j * rng.standard_normal((2, a, f)))
+    z = 0.1 * (rng.standard_normal((4, a, f)) + 1j * rng.standard_normal((4, a, f)))
     if dtype == "int16":
         rows = CArray(torch.from_numpy(plane_to_sc16(z.real)), torch.from_numpy(plane_to_sc16(z.imag)))
     else:
@@ -582,14 +684,14 @@ def test_speed_rows_mirror_reproduces_the_plain_versions(f, a, dtype):
     h_p, inv_p = pipe.estimate_pilot_speed_plain(rows[0], x_full)
     assert max_rel(h, h_p.to_numpy()) < 1e-5
     assert max_rel(np.array([sums[b].real for b in range(f)]), 1 / inv_p.numpy()) < 1e-5
-    hn = h_p.to_numpy()
-    sums = emulate_speed_rows(rows[1], f, lambda ant, b, cval: cval * np.conj(hn[ant, b]))
-    out = np.full(f - 1, np.nan, np.complex128)
-    for b in range(1, f):
-        jo = b - f // 2 + (f - 1 if b < f // 2 else 0)
-        out[jo] = sums[b] * inv_p.numpy()[b]
-    want = pipe.fused_pipeline_speed_plain(CArray(rows.re[1:2], rows.im[1:2]), h_p, inv_p)
-    assert max_rel(out, want.to_numpy()[0]) < 1e-5
+    data = CArray(rows.re[1:], rows.im[1:])
+    got, writes = emulate_speed_ring(data, h_p.to_numpy(), inv_p.numpy(), slots=2, lag=1)
+    assert writes.sum() == 32 * 128 * a * (f // 128 // fp.SPEED_RING_K1) * 3   # a run an antenna
+    assert a == 1 or np.all(writes >= 1)
+    want = pipe.fused_pipeline_speed_plain(data, h_p, inv_p).to_numpy()
+    exact = pipe.fused_pipeline_plain(data, h_p, inv_p).to_numpy()
+    assert np.all(np.isfinite(got))
+    assert evm_db(got, want) <= evm_db(want, exact) - GAP_DB and max_rel(got, want) < 1e-2
 
 
 @pytest.mark.parametrize("f", SIZES)

@@ -10,6 +10,17 @@ every F and A = 1..64, and a numpy emulation of the split (float32, in the
 kernel's order) is held within 1e-6 relative to estimate_pilot_plain's sum
 and to the JAX estimate_pilot_fused's (Pallas, interpret mode), each on its
 own h: float32 sums of the same terms in another order.
+
+At F = 8192 (fft_plan.PILOT_ROW_FFT) the kernel takes 4 blocks per antenna
+row instead, F = 64 x 128 split across them, in clusters of up to 4 rows,
+and the sum over the antennas is a tree: the cluster's rows through
+distributed shared memory, then the clusters' partials through a count
+per frame and block slot, each level added in a fixed order.  Its plan,
+its coverage of columns, rows and bins, the sum's single owner whatever
+the order the blocks count in, and a numpy mirror of
+the kernel's arithmetic (the register FFTs at 64 and 128 on the package's
+tables) against estimate_pilot_plain and the JAX kernel in interpret mode
+within TOL = 5e-5 (tests/test_torch_pipeline.py's bound) are checked below.
 """
 
 import re
@@ -20,18 +31,24 @@ import numpy as np
 import pytest
 import torch
 
+from ofdm_ls_mrc_tpu.golden.io import plane_to_sc16
 from ofdm_ls_mrc_tpu.ops import fastpath as jfastpath
 from ofdm_ls_mrc_tpu.ops import pallas_pipeline as jpp
 from ofdm_ls_mrc_tpu.ops.cplx import CArray as JCArray
+from ofdm_ls_mrc_tpu_torch import convert
 from ofdm_ls_mrc_tpu_torch.ops import fft_plan as fp
 from ofdm_ls_mrc_tpu_torch.ops import ls as tls
 from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
 from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+from test_torch_fft_plan import emulate
+from test_torch_large_fft import column_twiddles
 
 SIZES = fp.PILOT_FFT_SIZES
 ANTENNAS = range(1, 65)
 SMEM_PER_BLOCK = 232448   # H100: 227 KB opt-in per block
 SOURCE = Path(fp.__file__).resolve().parent.parent / "csrc" / "pilot_ls.cu"
+ROW_F = fp.PILOT_ROW_FFT
+TOL = 5e-5
 
 
 def max_rel(got, want):
@@ -62,12 +79,36 @@ def emulate_sum(abs2: np.ndarray, p: fp.PilotPlan) -> np.ndarray:
     return out
 
 
+def row_cluster_cover(p: fp.PilotPlan):
+    """At PILOT_ROW_FFT, how often each of a row's 128 columns and each of
+    its F bins is taken by its PILOT_ROW_BLOCKS blocks (block r: the columns
+    of the column pass's block, from 32 r, and the bins of its
+    PILOT_ROW_K1 rows k1 16 r ..), and how often each bin's sum is written
+    by the cluster's block slots (pilot_rank_bins)."""
+    n1 = ROW_F // fp.SPLIT_N2
+    c = fp.split_columns(n1)
+    cols, bins, sums = np.zeros(fp.SPLIT_N2, int), np.zeros(ROW_F, int), np.zeros(ROW_F, int)
+    for r in range(fp.PILOT_ROW_BLOCKS):
+        cols[c * r:c * (r + 1)] += 1
+        k1 = fp.PILOT_ROW_K1 * r + np.arange(fp.PILOT_ROW_K1)
+        bins[(k1[None, :] + n1 * np.arange(fp.SPLIT_N2)[:, None]).ravel()] += 1
+    for slot in range(p.clusters):
+        sums[np.asarray(fp.pilot_rank_bins(ROW_F, p.clusters, slot))] += 1
+    return cols, bins, sums
+
+
 @pytest.mark.parametrize("f", SIZES)
 def test_plan_covers_each_row_once(f):
     """Every antenna row is one (rank, team, step) of the plan, and no team
-    holds more than the plan's rows."""
+    holds more than the plan's rows.  At PILOT_ROW_FFT a row's blocks take
+    each of its columns and bins once, and a cluster's block slots own each
+    bin's sum once."""
     for a in ANTENNAS:
         p = fp.pilot_plan(a, f)
+        if f == ROW_F:
+            cols, bins, sums = row_cluster_cover(p)
+            assert np.all(cols == 1) and np.all(bins == 1) and np.all(sums == 1), (a, p)
+            continue
         seen = {}
         for rank in range(p.clusters):
             for team in range(p.teams):
@@ -91,19 +132,189 @@ def test_each_bin_sum_has_one_owner(f):
         assert np.all(owners == 1), (a, c)
 
 
+@pytest.mark.parametrize("k", [1, 20])
+@pytest.mark.parametrize("a", [1, 3, 16, 64])
+def test_row_cluster_plan_spreads_every_row(a, k):
+    """F = 8192: PILOT_ROW_BLOCKS blocks per antenna row and frame (grid (4
+    A, K)) in clusters of pilot_row_rows rows (4, 2 or 1, dividing A), so a
+    16 x 8192 pilot takes 64 SMs, no block more than a 64-point column FFT a
+    column and a 128-point FFT a row k1; the kernel's geometry and its check
+    of the plan agree with fft_plan."""
+    p = fp.pilot_plan(a, ROW_F, k)
+    g = fp.pilot_row_rows(a)
+    assert a % g == 0 and g == (4 if a % 4 == 0 else 2 if a % 2 == 0 else 1)
+    assert p == fp.PilotPlan(fp.PILOT_ROW_BLOCKS * g, 1, 1, fp.SPLIT_COLUMN_THREADS,
+                             fp.pilot_smem_bytes(ROW_F, 1))
+    assert p.clusters <= fp.PILOT_ROW_BLOCKS * fp.PILOT_ROW_MAX_ROWS == 16
+    n1 = ROW_F // fp.SPLIT_N2
+    assert fp.split_columns(n1) * fp.PILOT_ROW_BLOCKS == fp.SPLIT_N2
+    assert fp.PILOT_ROW_K1 * fp.PILOT_ROW_BLOCKS == n1
+    assert fp.PILOT_ROW_K1 * fp.plan(fp.SPLIT_N2).threads <= p.threads
+    assert 2 * (p.smem_bytes + 1024) <= 233472   # two blocks an SM
+    if (a, k) == (16, 1):
+        assert a * fp.PILOT_ROW_BLOCKS == 64 and p.clusters == 16
+    src = SOURCE.read_text()
+    assert f"constexpr int kRowBlocks = {fp.PILOT_ROW_BLOCKS};" in src
+    assert f"constexpr int kRowN1 = {n1};" in src
+    assert f"constexpr int kRowMaxRows = {fp.PILOT_ROW_MAX_ROWS};" in src
+    assert "constexpr int kRowK1 = kRowN1 / kRowBlocks;" in src
+    assert "return A % 4 == 0 ? 4 : A % 2 == 0 ? 2 : 1;" in src          # pilot_row_rows
+    assert "cfg.gridDim = dim3(kRowBlocks * A, K);" in src
+    assert "attr[0].val.clusterDim.x = row_rows(A) * kRowBlocks;" in src
+    assert "clusters != ofdm::row_rows(A) * ofdm::kRowBlocks ||" in src
+    assert ("return split::column_smem_bytes<kRowN1>() +\n"
+            "         static_cast<size_t>(kRowK1) * split::RowGeo::kTeamFloats * sizeof(float) +\n"
+            "         static_cast<size_t>(kRowBins) * sizeof(float);" in src)
+
+
+def row_sum_by_counts(abs2: np.ndarray, order) -> tuple:
+    """The F = 8192 pilot's sum over the antennas, emulated for one frame:
+    each cluster of G = pilot_row_rows rows adds its rows' float32 |h|^2 in
+    row order (each of its block slots a G-th of a rank's bins,
+    pilot_rank_bins) into its partial (with one cluster, the sum); the
+    clusters count in per slot in ``order`` (a list of clusters), and the
+    one that completes a slot's count adds the partials of its bins in
+    cluster order and sets the count back to 0.  Returns (the sums, how
+    often each bin was written, the counts left)."""
+    a, f = abs2.shape
+    abs2 = abs2.astype(np.float32)
+    g = fp.pilot_row_rows(a)
+    clusters, slots = a // g, fp.PILOT_ROW_BLOCKS * g
+    out, written = np.full(f, np.nan, np.float32), np.zeros(f, int)
+    counts = np.zeros(fp.pilot_row_counts(1), int)
+    partials = np.full((clusters, f), np.nan, np.float32)
+    for c in range(clusters):
+        for slot in range(slots):
+            bins = np.asarray(fp.pilot_rank_bins(f, slots, slot))
+            s = np.zeros(len(bins), np.float32)
+            for row in range(g * c, g * (c + 1)):
+                s += abs2[row, bins]
+            partials[c, bins] = s
+    for slot in range(slots):
+        bins = np.asarray(fp.pilot_rank_bins(f, slots, slot))
+        if clusters == 1:
+            out[bins], written[bins] = partials[0, bins], written[bins] + 1
+            continue
+        for c in order:
+            counts[slot] += 1
+            if counts[slot] < clusters:
+                continue
+            counts[slot] = 0
+            s = np.zeros(len(bins), np.float32)
+            for c2 in range(clusters):
+                s += partials[c2, bins]
+            out[bins], written[bins] = s, written[bins] + 1
+    return out, written, counts
+
+
+@pytest.mark.parametrize("a", [1, 5, 16, 64])
+def test_row_cluster_sum_has_one_owner_in_any_order(a):
+    """Every bin's sum is written once, by the block of its slot that
+    completes the count of the clusters, the same float32 bits whatever
+    order the clusters finish in (no float atomics), within 1e-6 of the
+    plain version's, and every count is left at 0 for the next launch on
+    the stream."""
+    rng = np.random.default_rng(a)
+    z = 0.1 * (rng.standard_normal((a, ROW_F)) + 1j * rng.standard_normal((a, ROW_F)))
+    x = tls.pad_pilot(np.exp(2j * np.pi * rng.random(ROW_F - 1)).astype(np.complex64), "cpu")
+    h, inv = pipe.estimate_pilot_plain(CArray.from_numpy(z.astype(np.complex64), "cpu"), x)
+    abs2 = h.abs2().numpy()
+    first = None
+    clusters = a // fp.pilot_row_rows(a)
+    for seed in range(3):
+        got, written, counts = row_sum_by_counts(
+            abs2, np.random.default_rng(seed).permutation(clusters))
+        assert np.all(written == 1) and np.all(counts == 0)
+        if first is None:
+            first = got
+        np.testing.assert_array_equal(got, first)
+    assert max_rel(first, 1 / inv.numpy()) < 1e-6
+
+
+def row_cluster_mirror(re_: np.ndarray, im_: np.ndarray, x_full: CArray, scale: float):
+    """csrc/pilot_ls.cu pilot_ls_row_kernel on one frame [A, 8192] in
+    complex64: block r of row a runs the 64-point register FFT of its 32
+    columns and the four-step twiddle (column_twiddles, the recurrence),
+    then the 128-point register FFT of its 16 rows k1, each gathered from
+    the row's four blocks, and h = Y conj(X) scale / |X|^2 at bins k1 + 64
+    k2; the sum as row_sum_by_counts.  Returns (h [A, F] complex64, the sum
+    [F] float32, how often each (antenna, bin) was written)."""
+    a, f = re_.shape
+    n1 = f // fp.SPLIT_N2
+    c = fp.split_columns(n1)
+    tw = column_twiddles(f)
+    xr, xi = x_full.re.numpy(), x_full.im.numpy()
+    den = (np.float32(scale) / (xr * xr + xi * xi)).astype(np.float32)
+    h = np.full((a, f), np.nan, np.complex64)
+    written = np.zeros((a, f), int)
+    for ant in range(a):
+        x = (re_[ant].astype(np.float32) + 1j * im_[ant].astype(np.float32)).astype(
+            np.complex64).reshape(n1, fp.SPLIT_N2)
+        cols = np.empty((n1, fp.SPLIT_N2), np.complex64)   # the row's column buffers
+        for r in range(fp.PILOT_ROW_BLOCKS):
+            for i2 in range(c * r, c * (r + 1)):
+                cols[:, i2] = emulate(x[:, i2]) * tw[:, i2]
+        for r in range(fp.PILOT_ROW_BLOCKS):
+            for k1 in range(fp.PILOT_ROW_K1 * r, fp.PILOT_ROW_K1 * (r + 1)):
+                y = emulate(cols[k1])
+                bins = k1 + n1 * np.arange(fp.SPLIT_N2)
+                hv = y * (xr[bins] - 1j * xi[bins]).astype(np.complex64) * den[bins]
+                h[ant, bins] = hv.astype(np.complex64)
+                written[ant, bins] += 1
+    hr, hi = h.real.astype(np.float32), h.imag.astype(np.float32)
+    sums, _, _ = row_sum_by_counts(hr * hr + hi * hi, range(a // fp.pilot_row_rows(a)))
+    return h, sums, written
+
+
+@pytest.mark.parametrize("a,dtype", [(3, "f32"), (2, "int16")])
+def test_row_cluster_mirror_matches_plain_and_jax(a, dtype):
+    """The F = 8192 pilot's mirror against estimate_pilot_plain and the JAX
+    estimate_pilot_fused (Pallas, interpret mode) within TOL = 5e-5: h and
+    sum |h|^2, float32 and sc16 rows (the scale in h, as the kernel takes
+    it)."""
+    rng = np.random.default_rng(a)
+    z = 0.1 * (rng.standard_normal((a, ROW_F)) + 1j * rng.standard_normal((a, ROW_F)))
+    if dtype == "int16":
+        re_, im_ = plane_to_sc16(z.real), plane_to_sc16(z.imag)
+    else:
+        re_, im_ = z.real.astype(np.float32), z.imag.astype(np.float32)
+    pilot = np.exp(2j * np.pi * rng.random(ROW_F - 1)).astype(np.complex64)
+    x_full = tls.pad_pilot(pilot, "cpu")
+    rows = CArray(torch.from_numpy(re_), torch.from_numpy(im_))
+    h, sums, written = row_cluster_mirror(re_, im_, x_full, pipe._scale(rows))
+    assert np.all(written == 1) and np.all(np.isfinite(h)) and np.all(np.isfinite(sums))
+    h_p, inv_p = pipe.estimate_pilot_plain(rows, x_full)
+    assert max_rel(h, h_p.to_numpy()) < TOL
+    assert max_rel(sums, 1 / inv_p.numpy()) < TOL
+    x_perm = jfastpath.prepare_pilot_fast(pilot, ROW_F)
+    h3, inv3 = jpp.estimate_pilot_fused(JCArray(jnp.asarray(re_), jnp.asarray(im_)), x_perm,
+                                        interpret=True)
+    want_h, want_inv = convert.estimate_from_reference(np.asarray(h3.re), np.asarray(h3.im),
+                                                       np.asarray(inv3), device="cpu")
+    assert max_rel(h, want_h.to_numpy()) < TOL
+    assert max_rel(sums, 1 / want_inv.numpy()) < TOL
+
+
 @pytest.mark.parametrize("f", SIZES)
 def test_plan_fits_the_card(f):
-    """A portable cluster (at most 8 blocks), the kernel's thread cap, the
-    rows a team needs and no more, and shared memory within a block's 227 KB
-    whose regions that take 16-byte copies (the team buffers, X) start
-    16-byte aligned."""
+    """A portable cluster (at most 8 blocks; at PILOT_ROW_FFT up to 16, the
+    H100's most with the non-portable size allowed), the kernel's thread
+    cap, the rows a team needs and no more, and shared memory within a
+    block's 227 KB whose regions that take 16-byte copies (the team
+    buffers, X) start 16-byte aligned."""
     t = fp.pilot_team_threads(f)
     # The split sizes' teams are the row pass's 8-lane teams of 128 bins.
     team_f = fp.SPLIT_N2 if f in fp.SPLIT_FFT_SIZES else f
     for a in ANTENNAS:
         p = fp.pilot_plan(a, f)
-        assert 1 <= p.clusters <= fp.MAX_CLUSTER == 8
         assert p.threads == p.teams * t <= fp.pilot_max_threads(f) <= 1024
+        assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams) <= SMEM_PER_BLOCK
+        if f == ROW_F:   # blocks of a row in a cluster of rows: one block's share of one row
+            assert p.rows == p.teams == 1 and 4 <= p.clusters <= 16
+            assert p.clusters == fp.PILOT_ROW_BLOCKS * fp.pilot_row_rows(a)
+            assert fp.split_column_smem_bytes(f // fp.SPLIT_N2) % 16 == 0
+            continue
+        assert 1 <= p.clusters <= fp.MAX_CLUSTER == 8
         assert p.rows == -(-a // (p.clusters * p.teams))
         assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams)
         assert p.smem_bytes <= SMEM_PER_BLOCK
@@ -124,9 +335,9 @@ def test_plan_fits_the_card(f):
     (64, 64, (4, 16, 1)),    # a cluster of 4, 16 bins a rank
     (3, 128, (1, 3, 1)),
     (64, 128, (4, 16, 1)),
-    (16, 8192, (8, 1, 2)),   # one team of 256 threads a block, 2 rows a team
-    (1, 8192, (1, 1, 1)),
-    (64, 8192, (8, 1, 8)),
+    (16, 8192, (16, 1, 1)),  # 4 blocks per antenna row, 4 rows a cluster: 64 blocks
+    (1, 8192, (4, 1, 1)),
+    (64, 8192, (16, 1, 1)),
     (16, 16384, (8, 2, 1)),  # the split form: 16 clusters of 8 blocks x 2 antenna teams
     (5, 16384, (5, 1, 1)),
     (1, 32768, (1, 1, 1)),
@@ -151,8 +362,7 @@ def test_plan_rules_match_the_kernel_source():
     memory layout the kernel checks the plan's bytes against."""
     src = SOURCE.read_text()
     assert int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1)) == fp.MAX_CLUSTER
-    assert ("return 2 * wfft::Geo<F>::T > 256 ? 256 : 2 * wfft::Geo<F>::T > 128 ? "
-            "2 * wfft::Geo<F>::T : 128;") in src
+    assert "return 2 * wfft::Geo<F>::T > 128 ? 2 * wfft::Geo<F>::T : 128;" in src
     assert "const int g = rank * teams + team.id;" in src
     assert "const int step = C * teams;" in src
     assert "const int lo = rank * F / C, hi = (rank + 1) * F / C;" in src
@@ -183,3 +393,55 @@ def test_emulated_split_matches_plain_and_jax(a):
     hr, hi = np.asarray(h3.re).reshape(a, f), np.asarray(h3.im).reshape(a, f)
     got = emulate_sum(hr * hr + hi * hi, p)
     assert max_rel(got, 1 / np.asarray(inv3).reshape(f)) < 1e-6
+
+
+@pytest.mark.parametrize("a,k", [(1, 1), (4, 1), (16, 1), (64, 1), (16, 20), (6, 3)])
+def test_row_cluster_wrapper_hands_the_kernel_its_buffers(monkeypatch, a, k):
+    """estimate_pilot_fused at F = 8192 on a recording library: the plan
+    (4 G, 1, 1), the split table, the partials [K, A / G, F] where there is
+    more than one cluster of rows (else none), and a zeroed count buffer of
+    at least pilot_row_counts entries, the same buffer for the next call on
+    the stream."""
+    import contextlib
+
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    calls = []
+
+    class Lib:
+        def ofdm_pilot_ls(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pipe, "_device_route", lambda x, name: True)
+    monkeypatch.setattr(build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {
+        "cuda_stream": 12345})())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(pipe, "_pilot_counts", {})
+    seen = []
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        seen.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    rows = CArray(torch.zeros((k, a, ROW_F)), torch.zeros((k, a, ROW_F)))
+    x = tls.pad_pilot(np.ones(ROW_F - 1, np.complex64), "cpu")
+    for _ in range(2):
+        pipe.estimate_pilot_fused(rows, x)
+    (args, again) = calls
+    p = fp.pilot_plan(a, ROW_F, k)
+    assert args[10:14] == (p.clusters, p.teams, p.rows, p.smem_bytes)
+    assert args[16] == fp.split_tables(ROW_F, False, torch.device("cpu")).data_ptr()
+    counts = pipe._pilot_counts[(None, 12345)]
+    assert counts.dtype == torch.int32 and counts.numel() >= fp.pilot_row_counts(k)
+    assert not counts.any() and args[23] == again[23] == counts.data_ptr()
+    clusters = a // fp.pilot_row_rows(a)
+    if clusters > 1:
+        part = next(t for t in seen if t.data_ptr() == args[21])
+        assert tuple(part.shape) == (k, clusters, ROW_F) and part.dtype == torch.float32
+    else:
+        assert args[21] is None

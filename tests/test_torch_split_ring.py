@@ -1,10 +1,12 @@
-"""The exact data kernels' one-launch split form at F = 16384 and 32768
-(``csrc/fft_split.cuh`` ring_loop; ``fft_mrc``, ``mrc_demod``), on the CPU.
+"""The data kernels' one-launch split form (``csrc/fft_split.cuh``
+ring_loop): the exact ``fft_mrc`` and ``mrc_demod`` at F = 16384 and 32768,
+the bf16 ``fft_mrc_bf16`` at F = 8192 to 32768, on the CPU.
 
 The kernel is a persistent grid that takes tiles by ticket (a column tile:
 the column pass of one column group of one antenna row of one symbol; a row
-tile: SPLIT_K1 bins k1 of one symbol over every antenna) and meets its two
-passes in a ring of ``fft_plan.split_ring`` symbol slots.  It has no
+tile: SPLIT_K1 bins k1 of one symbol over every antenna, or the bf16
+kernel's SPEED_RING_K1) and meets its two passes in a ring of
+``fft_plan.split_ring`` symbol slots.  It has no
 interpret mode, so these tests hold its Python mirror (``fft_plan``'s
 ``ring_ticket`` and ``split_ring``) to what the kernel needs:
 
@@ -18,7 +20,9 @@ interpret mode, so these tests hold its Python mirror (``fft_plan``'s
 3. the ring, run tile by tile in ticket order on small frames (float32 and
    int16 rows, R = 2 slots), equals the plain versions within TOL = 2e-5
    max-rel (the kernels' bound against their plain versions, chip_smoke.py
-   KERNEL_TOL: both sides float32 FFTs taken in another order);
+   KERNEL_TOL: both sides float32 FFTs taken in another order); the bf16
+   ring's mirror is tests/test_torch_large_fft.py's
+   (``emulate_speed_ring``);
 4. the ring's sizing and constants agree with the kernel header, and the
    wrappers hand the kernels the ring (at most SPLIT_RING_BYTES at 16
    antennas), not the chunked scratch.
@@ -44,16 +48,21 @@ from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 from test_torch_large_fft import column_twiddles
 
 SIZES = fp.SPLIT_FFT_SIZES
+# (F, bins k1 of a row tile): the exact kernels' rings, then the bf16 ring's
+# (ids keep the exact cases' names).
+ROW_TILES = ([pytest.param(f, fp.SPLIT_K1, id=str(f)) for f in SIZES]
+             + [pytest.param(f, fp.SPEED_RING_K1, id=f"{f}-bf16") for f in fp.SPEED_SPLIT_SIZES])
+TIGHT = [(2, 1), (3, 2), (5, 4)]   # (slots, lag): the tightest rings
 TOL = 2e-5
 CSRC = Path(fp.__file__).resolve().parent.parent / "csrc"
 SCHEDULES = [(k, s, a) for k in (1, 2) for s in (1, 3, 100) for a in (1, 2, 16, 64)]
 
 
-def schedule(f: int, items: int, antennas: int, slots_lag=None):
+def schedule(f: int, items: int, antennas: int, slots_lag=None, k1: int = fp.SPLIT_K1):
     """(slots, lag, ct, rt, tiles): tiles[t] = (column?, item, index) of
-    ticket t."""
-    slots, lag = slots_lag or fp.split_ring(items, antennas, f)
-    ct, rt = fp.split_ring_tiles(antennas, f)
+    ticket t, row tiles of k1 bins k1."""
+    slots, lag = slots_lag or fp.split_ring(items, antennas, f, k1=k1)
+    ct, rt = fp.split_ring_tiles(antennas, f, k1)
     tiles = [fp.ring_ticket(t, items, lag, ct, rt) for t in range(items * (ct + rt))]
     return slots, lag, ct, rt, tiles
 
@@ -69,10 +78,11 @@ def ticket_maps(tiles):
 # -- 1. the schedule -------------------------------------------------------------
 
 @pytest.mark.parametrize("k,s,a", SCHEDULES)
-@pytest.mark.parametrize("f", SIZES)
-def test_ring_schedule_takes_every_tile_once_and_waits_backwards(f, k, s, a):
+@pytest.mark.parametrize("f,k1", ROW_TILES)
+def test_ring_schedule_takes_every_tile_once_and_waits_backwards(f, k1, k, s, a):
     items = k * s
-    slots, lag, ct, rt, tiles = schedule(f, items, a)
+    slots, lag, ct, rt, tiles = schedule(f, items, a, k1=k1)
+    assert rt == f // 128 // k1
     assert len(set(tiles)) == len(tiles) == items * (ct + rt)
     assert set(tiles) == ({(True, i, j) for i in range(items) for j in range(ct)}
                           | {(False, i, j) for i in range(items) for j in range(rt)})
@@ -88,12 +98,12 @@ def test_ring_schedule_takes_every_tile_once_and_waits_backwards(f, k, s, a):
 
 # -- 2. a persistent grid over the schedule -------------------------------------
 
-def run_grid(f, items, antennas, blocks, seed, slots_lag=None):
+def run_grid(f, items, antennas, blocks, seed, slots_lag=None, k1=fp.SPLIT_K1):
     """Event simulation of the kernel's grid: each block takes the next
     ticket when it starts a tile (and holds it while the tile runs), a tile
     is (work, wait, work) with random durations, the waits as ring_loop's.
     Returns (the time the grid ends, the slot faults seen)."""
-    slots, lag, ct, rt, tiles = schedule(f, items, antennas, slots_lag)
+    slots, lag, ct, rt, tiles = schedule(f, items, antennas, slots_lag, k1)
     rng = np.random.default_rng(seed)
     cols_done = np.zeros(items, int)
     rows_done = np.zeros(items, int)
@@ -171,18 +181,22 @@ def run_grid(f, items, antennas, blocks, seed, slots_lag=None):
 
 @pytest.mark.parametrize("blocks", [1, 2, 7, 264])
 @pytest.mark.parametrize("k,s,a", [(1, 1, 16), (2, 3, 1), (2, 3, 64), (1, 100, 16)])
-@pytest.mark.parametrize("f", SIZES)
-def test_ring_grid_ends_and_never_overwrites_a_slot_early(f, k, s, a, blocks):
-    _, faults = run_grid(f, k * s, a, blocks, seed=f + blocks + a)
+@pytest.mark.parametrize("f,k1", ROW_TILES)
+def test_ring_grid_ends_and_never_overwrites_a_slot_early(f, k1, k, s, a, blocks):
+    _, faults = run_grid(f, k * s, a, blocks, seed=f + blocks + a, k1=k1)
     assert faults == []
 
 
-@pytest.mark.parametrize("slots_lag", [(2, 1), (3, 2), (5, 4)])
-def test_ring_grid_at_the_tightest_rings(slots_lag):
+@pytest.mark.parametrize("slots_lag,k1", [
+    *(pytest.param(sl, fp.SPLIT_K1, id=f"slots_lag{i}") for i, sl in enumerate(TIGHT)),
+    *(pytest.param(sl, fp.SPEED_RING_K1, id=f"slots_lag{i}-bf16") for i, sl in enumerate(TIGHT))])
+def test_ring_grid_at_the_tightest_rings(slots_lag, k1):
     """Few slots and the largest lag a ring of them allows, 64 antennas
-    (the slot past the L2 share): still no early overwrite, no deadlock."""
-    _, faults = run_grid(32768, 12, 64, 264, seed=sum(slots_lag), slots_lag=slots_lag)
-    assert faults == []
+    (the slot past the L2 share): still no early overwrite, no deadlock,
+    with the exact row tiles and the bf16 ones (8192: two a symbol)."""
+    for f in ((32768,) if k1 == fp.SPLIT_K1 else (8192, 32768)):
+        _, faults = run_grid(f, 12, 64, 264, seed=sum(slots_lag), slots_lag=slots_lag, k1=k1)
+        assert faults == []
 
 
 # -- 3. the ring on small frames against the plain versions -----------------------
@@ -277,6 +291,24 @@ def test_ring_mirror_matches_fused_demod_plain(f, dtype):
 
 # -- 4. sizing, the header, the wrappers -----------------------------------------
 
+@pytest.mark.parametrize("f", fp.SPEED_SPLIT_SIZES)
+def test_speed_ring_sizing(f):
+    """The bf16 ring, bf16 slots: in L2 at 16 antennas (80 / 40 / 20 slots
+    at 8192 / 16384 / 32768), in device memory past SPEED_RING_L2_ANTENNAS
+    (64 antennas, also at 8192 where the share would hold 20 slots): its row
+    tiles take every antenna in series, 64 antenna products a tile."""
+    assert fp.split_ring_bytes_per_value(fp.SPEED_RING_K1) == 2
+    assert fp.split_ring_bytes_per_value(fp.SPLIT_K1) == 4
+    for a in (1, 16):
+        slots, lag = fp.split_ring(100, a, f, k1=fp.SPEED_RING_K1)
+        assert slots * 2 * a * f * 2 <= fp.SPLIT_RING_BYTES and 1 <= lag <= slots // 2
+    assert fp.split_ring(100, 16, f, k1=fp.SPEED_RING_K1)[0] == {8192: 80, 16384: 40,
+                                                                 32768: 20}[f]
+    slots, lag = fp.split_ring(100, 64, f, k1=fp.SPEED_RING_K1)
+    assert slots * 2 * 64 * f * 2 > fp.SPLIT_RING_BYTES and lag == slots // 2
+    assert slots * 2 * 64 * f * 2 <= fp.SPLIT_SCRATCH_BYTES
+
+
 @pytest.mark.parametrize("a", [1, 2, 16, 64])
 @pytest.mark.parametrize("f", SIZES)
 def test_split_ring_sizing(f, a):
@@ -301,12 +333,17 @@ def test_split_ring_sizing(f, a):
 
 
 def test_ring_constants_match_the_header():
+    """The ring's schedule, tiles and shared memory as the header and the
+    exact kernels' sources hold them (row tiles of SPLIT_K1 bins k1, F =
+    16384 and 32768); the bf16 kernel's below."""
     text = (CSRC / "fft_split.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
     assert const("kRingBlocks") == fp.SPLIT_RING_BLOCKS
+    assert "return N1 / kRowK1;" in text                                   # ring_row_tiles
+    assert "template <int N1, int kRowK1 = kK1, typename Kernel, typename... Extra>" in text
     assert "constexpr int kTeamThreads = kK1 * kRowLanes;" in text
     assert "constexpr int kHStageFloats = 2 * kK1 * kN2;" in text
     assert "constexpr int kGainFloats = kK1 * kN2;" in text
@@ -336,6 +373,34 @@ def test_ring_constants_match_the_header():
         src = (CSRC / name).read_text()
         assert "_rows_kernel" not in src and "run_split" not in src
         assert "split::launch_ring<N1>" in src
+
+
+def test_bf16_ring_constants_match_the_header():
+    """The same checks over the bf16 row tiles (RT = N1 / SPEED_RING_K1) and
+    F = 8192: the header's generic schedule, the bf16 kernel's source and
+    ``speed_ring_smem_bytes``."""
+    text = (CSRC / "fft_split.cuh").read_text()
+    assert "return N1 / kRowK1;" in text                                   # ring_row_tiles
+    assert "template <int N1, int kRowK1 = kK1, typename Kernel, typename... Extra>" in text
+    src = (CSRC / "fft_mrc_bf16.cu").read_text()
+    assert "constexpr int kRingK1 = kChunkRows / 2;" in src and fp.SPEED_RING_K1 == 16
+    assert "split::ring_loop<N1, E, kRingK1, __nv_bfloat16, true>(" in src   # bf16 slots
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in src
+    assert "const cuuint32_t box[2] = {64, 2 * kRingK1};" in src
+    assert "return sizeof(S) == 4 ? k1 * kN2 : (k1 >> 3) * 16 * kN2 + (k1 & 7) * kN2;" in text
+    assert "split::launch_ring<N1, kRingK1>(fft_mrc_bf16_ring_kernel<N1, float>" in src
+    assert "static constexpr int kBytes = kBar + kBars * 8 + kAlign;" in src
+    assert "static constexpr int kBars = 5;" in src
+    assert "speed_rows_kernel" not in src and "launch_rows" not in src
+    for f in fp.SPEED_SPLIT_SIZES:
+        n1, n2 = fp.split_factors(f)
+        twiddles = len(fp.pass_twiddles_np(n1)) + len(fp.pass_twiddles_np(n2))
+        region = max(fp.split_column_smem_bytes(n1), 2 * 64 * 128 * 2)
+        assert fp.speed_ring_smem_bytes(f) == (-(-region // 1024) * 1024 + 65536
+                                               + 8 * twiddles + 40 + 1024)
+        assert fp.SPLIT_RING_BLOCKS * (fp.speed_ring_smem_bytes(f) + 1024 + 8) <= 233472
+        assert fp.speed_smem_bytes(f, False) == fp.speed_ring_smem_bytes(f)
+        assert fp.split_ring_tiles(16, f, fp.SPEED_RING_K1)[1] == n1 // 16
 
 
 class _Lib:
@@ -399,6 +464,36 @@ def test_wrappers_hand_the_data_kernels_the_ring(fake_card, f):
     # The pilot keeps the chunked scratch.
     scratch, chunk = pipe._split_scratch(1, a, f, pipe.SPLIT_FFT_SIZES, torch.device("cpu"))
     assert tuple(scratch.shape) == (2, chunk, a, f)
+
+
+@pytest.mark.parametrize("a", [16, 64])
+@pytest.mark.parametrize("f", fp.SPEED_SPLIT_SIZES)
+def test_wrappers_hand_the_bf16_kernel_the_ring(fake_card, f, a):
+    """fused_pipeline(exact=False) at F = 8192 to 32768: one call of
+    ofdm_fft_mrc_bf16 with the ring of split_ring's bf16 row tiles [2, R,
+    A, F], zeroed counters [1 + 2 items], W's image in place of W and no
+    chunked scratch; below 8192 W and no ring."""
+    lib, rings = fake_card
+    s = 4
+    row = torch.zeros((1, 1, f))
+    y = CArray(row.expand(s, a, f), row.expand(s, a, f))
+    h = CArray(torch.zeros((a, f)), torch.zeros((a, f)))
+    pipe.fused_pipeline(y, h, torch.ones(f), exact=False)
+    assert [name for name, _ in lib.calls] == ["ofdm_fft_mrc_bf16"]
+    (_, args), (ring, counters, slots, lag) = lib.calls[0], rings[-1]
+    assert (slots, lag) == fp.split_ring(s, a, f, k1=fp.SPEED_RING_K1)
+    assert tuple(ring.shape) == (2, slots, a, f) and ring.dtype == torch.bfloat16
+    assert not counters.any()
+    assert tuple(counters.shape) == (1 + 2 * s,)
+    assert args[14] is None and args[15] == fp.speed_w_image(torch.device("cpu")).data_ptr()
+    assert args[-5:] == (ring.data_ptr(), slots, lag, counters.data_ptr(), 0)
+    lib.calls.clear()
+    small = CArray(torch.zeros((s, a, 4096)), torch.zeros((s, a, 4096)))
+    pipe.fused_pipeline(small, CArray(torch.zeros((a, 4096)), torch.zeros((a, 4096))),
+                        torch.ones(4096), exact=False)
+    args = lib.calls[0][1]
+    assert args[14] == fp.speed_w(torch.device("cpu")).data_ptr() and args[15] is None
+    assert args[-5:] == (None, 0, 0, None, 0)
 
 
 def test_ring_refuses_a_misaligned_estimate(fake_card):
