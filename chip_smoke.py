@@ -168,14 +168,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1.06 GB each); each kernel's device time on the frame beside its plain
    version, torch.fft.fft of its rows and its bound (3.35 TB/s and the
    measured io floor), the capture's per frame, and the ptxas lines of
-   every new instantiation (35, the ring kernels' and the 8192 pilot's
-   among them); the ring legs: at 16384 and 32768 fft_mrc and mrc_demod,
-   at 8192 to 32768 fft_mrc_bf16, each one launch a call on its ring of
-   symbol slots, against their plain versions (below 2e-5; the bf16 one by
-   phase 14's criteria) at 16 and 64 antennas, f32 rows with the 72 F /
-   1024 prefix and int16 rows, a streamed symbol (S = 1) and full frames
-   (fft_mrc and fft_mrc_bf16 over K = 2 frames of 100 symbols), each leg
-   twice back to back with the counts set to 0 before each; the three
+   every new instantiation (35, the ring kernels', the 8192 pilot's and
+   the 8192 data kernels' spread over the card among them); the one-launch
+   legs: fft_mrc and mrc_demod (at 8192 their rows spread over the card,
+   fft_plan.spread_plan; at 16384 and 32768 on their ring of symbol
+   slots), and at 8192 to 32768 fft_mrc_bf16 on its ring, against their
+   plain versions (below 2e-5; the bf16 one by phase 14's criteria) at 16
+   and 64 antennas, f32 rows with the 72 F / 1024 prefix and int16 rows, a
+   streamed symbol (S = 1) and full frames (fft_mrc and fft_mrc_bf16 over
+   K = 2 frames of 100 symbols), each leg twice back to back with the
+   counts set to 0 before each; the three
    pilots on a 64-antenna pilot (f32 and int16) against their plain
    versions; for each pilot at each F one line with its time, its
    column-pass and row-pass times (at 8192 the exact pilot is one kernel,
@@ -1564,14 +1566,22 @@ def speed_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, 
 def large_ptxas_lines(report: str):
     """Registers, spills and the launch's dynamic shared memory of every
     instantiation of phase 15's geometry from nvcc's -Xptxas -v report: the
-    exact data kernels at F = 8192 (the register FFT), the exact pilot at
+    exact data kernels at F = 8192 (their rows spread over the card), the exact pilot at
     8192 (a cluster per antenna row), the split form's column pass and the
     pilots' row passes (F = 16384 and 32768 exact, 8192-32768 bf16), the
     data kernels' rings (exact 16384 and 32768, bf16 8192-32768)."""
     from ofdm_ls_mrc_tpu_torch.ops import fft_plan
 
-    yield from ptxas_lines(report, (8192,), ("fft_mrc", "mrc_demod"), ANTENNAS)
     tail = r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers"
+    for name, t, aligned, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_spread_kernelI(\w)Lb(\d)EE"
+            + tail, report, re.S):
+        plan = fft_plan.spread_plan(SYMBOLS - 1, ANTENNAS)
+        yield (f"ptxas {name}_spread<8192, {'int16' if t == 's' else 'float'}, "
+               f"{'cp.async' if aligned == '1' else 'element'} loads> (rows spread over the "
+               f"card): {regs} registers, {spill} B spilled, {plan.smem_bytes} B dynamic shared "
+               f"memory, {plan.threads} threads a block (one row team), {plan.blocks} blocks for "
+               f"a {ANTENNAS}x8192x{SYMBOLS - 1} frame")
     for t, spill, regs in re.findall(
             r"Compiling entry function '_ZN4ofdm\d+pilot_ls_row_kernelI(\w)E" + tail, report, re.S):
         plan = fft_plan.pilot_plan(ANTENNAS, 8192)
@@ -1630,8 +1640,9 @@ def ring_ptxas_lines(report: str):
 
 
 def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
-    """Phase 15's ring legs at F: the exact fft_mrc and mrc_demod (F = 16384,
-    32768) against their plain versions below KERNEL_TOL, and the bf16
+    """Phase 15's one-launch legs at F: the exact fft_mrc and mrc_demod (F =
+    8192, their rows spread over the card, ``fft_plan.spread_plan``; 16384
+    and 32768 on their ring) against their plain versions below KERNEL_TOL, and the bf16
     fft_mrc_bf16 (F = 8192 to 32768) against fused_pipeline_speed_plain at
     the speed criterion (EVM against it SPEED_GAP_DB below the plain
     version's against the exact one, max-rel < SPEED_REL), each one launch a
@@ -1646,7 +1657,6 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
     from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 
     cp = 72 * f // 1024
-    exact = f in pipe.SPLIT_FFT_SIZES
     out = {}
     for a in (ANTENNAS, WIDE_PILOT_ANTENNAS):
         g = torch.Generator(device=dev).manual_seed(f + a)
@@ -1662,25 +1672,23 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
         hc = CArray(hr[0][0].contiguous(), (-hr[1][0]).contiguous())
         hs = 1.0 / inv[0]
         for label, y in rows.items():
-            legs = {}
-            if exact:
-                legs.update({
-                    "fft_mrc full frames": (
-                        "fft_mrc", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv),
-                        lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv), slice(None), None),
-                    "fft_mrc S=1": (
-                        "fft_mrc", lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0]),
-                        lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0]),
-                        slice(None), None),
-                    "mrc_demod full frame": (
-                        "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[0, 1:], hc, hs),
-                        lambda y=y: fused_mrc.fused_demod_plain(y[0, 1:], hc, hs),
-                        slice(1, None), None),
-                    "mrc_demod S=1": (
-                        "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[1, 1:2], hc, hs),
-                        lambda y=y: fused_mrc.fused_demod_plain(y[1, 1:2], hc, hs),
-                        slice(1, None), None),
-                })
+            legs = {   # the exact pair at every F of the phase
+                "fft_mrc full frames": (
+                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv),
+                    lambda y=y: pipe.fused_pipeline_plain(y[:, 1:], h, inv), slice(None), None),
+                "fft_mrc S=1": (
+                    "fft_mrc", lambda y=y: pipe.fused_pipeline(y[0, 1:2], h[0], inv[0]),
+                    lambda y=y: pipe.fused_pipeline_plain(y[0, 1:2], h[0], inv[0]),
+                    slice(None), None),
+                "mrc_demod full frame": (
+                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[0, 1:], hc, hs),
+                    lambda y=y: fused_mrc.fused_demod_plain(y[0, 1:], hc, hs),
+                    slice(1, None), None),
+                "mrc_demod S=1": (
+                    "mrc_demod", lambda y=y: fused_mrc.fused_demod(y[1, 1:2], hc, hs),
+                    lambda y=y: fused_mrc.fused_demod_plain(y[1, 1:2], hc, hs),
+                    slice(1, None), None),
+            }
             legs.update({
                 "fft_mrc_bf16 full frames": (
                     "fft_mrc_bf16", lambda y=y: pipe.fused_pipeline(y[:, 1:], h, inv, exact=False),
@@ -1698,7 +1706,11 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
                 items = (2 * (SYMBOLS - 1) if "frames" in leg else
                          SYMBOLS - 1 if "frame" in leg else 1)
                 k1 = fft_plan.SPEED_RING_K1 if name == "fft_mrc_bf16" else fft_plan.SPLIT_K1
-                ring = fft_plan.split_ring(items, a, f, k1=k1)
+                if name != "fft_mrc_bf16" and f == fft_plan.SPREAD_FFT:
+                    geo = "spread plan (blocks, threads, smem) %s" % (
+                        tuple(fft_plan.spread_plan(items, a)),)
+                else:
+                    geo = "ring (slots, lag) %s" % (fft_plan.split_ring(items, a, f, k1=k1),)
                 for run in (1, 2):
                     torch.cuda.synchronize()
                     reset_counts()
@@ -1710,14 +1722,14 @@ def ring_legs(dev, f: int, card: str, errs: dict, reset_counts, counts) -> dict:
                     key = f"{name} F={f} {a}x{label} {leg} run {run}"
                     out[key] = rel
                     if e_pe is None:
-                        print(f"ring {key}: max-rel {rel:.3e}, launches {n[name]}, ring "
-                              f"(slots, lag) {ring}  [{card}]")
+                        print(f"ring {key}: max-rel {rel:.3e}, launches {n[name]}, {geo}  "
+                              f"[{card}]")
                         ok = rel < KERNEL_TOL
                     else:
                         e_kp = evm_db(got, want)
                         print(f"ring {key}: EVM vs plain {e_kp:.2f} dB, plain vs exact "
-                              f"{e_pe:.2f} dB, max-rel {rel:.3e}, launches {n[name]}, ring "
-                              f"(slots, lag) {ring}  [{card}]")
+                              f"{e_pe:.2f} dB, max-rel {rel:.3e}, launches {n[name]}, {geo}  "
+                              f"[{card}]")
                         ok = e_kp <= e_pe - SPEED_GAP_DB and rel < SPEED_REL
                     require(ok and n[name] == 1 and sum(n.values()) == 1,
                             f"ring {key}: max-rel {rel:.3e}, launches {n}")
@@ -1752,7 +1764,7 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
 
     from ofdm_ls_mrc_tpu_torch import FrameConfig, parallel
     from ofdm_ls_mrc_tpu_torch.models import StreamingDemodulator, UplinkReceiver
-    from ofdm_ls_mrc_tpu_torch.ops import fused_mrc
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc
     from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
     from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 
@@ -2041,7 +2053,10 @@ def large_fft_phase(workdir, dev, card, golden, sim, reset_counts, counts, measu
                                     "library_ms": timed(t, "library")[1]},
                     "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {cp}, one frame",
                     **({"pass_split_ms": passes} if passes else {}),
-                    **({"ring": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cuh ring_loop"}
+                    **({"spread": "ofdm_ls_mrc_tpu_torch/csrc/fft_spread.cuh spread_rows",
+                        "spread_plan": list(fft_plan.spread_plan(s, ANTENNAS))}
+                       if f == fft_plan.SPREAD_FFT and name in ("fft_mrc", "mrc_demod") else
+                       {"ring": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cuh ring_loop"}
                        if (f in pipe.SPLIT_FFT_SIZES and name in ("fft_mrc", "mrc_demod"))
                        or name == "fft_mrc_bf16" else
                        {"column_pass": "ofdm_ls_mrc_tpu_torch/csrc/fft_split.cu"}

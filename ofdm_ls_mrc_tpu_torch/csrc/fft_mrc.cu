@@ -41,10 +41,19 @@
 //     per team in sequence, also at S = 1 (the streaming shape).
 // ptxas (sm_90a): 223-226 registers at F = 1024 (254 for f32 rows on the
 // element path), no spills; 75,776 B of dynamic shared memory a block, so 2 blocks (8 warps)
-// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.  F = 8192: one
-// team of 256 threads a symbol (radices 32, 16, 16), 225-226 registers, no
-// spills, 204,800 B, one block an SM: one 16 x 8192 x 100 f32 frame takes
-// ~82 us on an H100 against 33.6 us of bytes at 3.35 TB/s.
+// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.
+//
+// F = 8192: fft_mrc_spread_kernel below on fft_spread.cuh's spread_rows:
+// the launch's K S A antenna rows spread over one block an SM in
+// contiguous ranges (12 or 13 rows a block for a 16 x 8192 x 100 frame),
+// each block's rows in sequence on one 256-thread team of the register FFT,
+// the sum over a symbol's antennas in registers and, where a symbol's rows
+// span blocks, through partials in L2 and a count per symbol; stored as
+// above (ops/fft_plan.py spread_plan; ptxas and the times: chip_smoke.py
+// phase 15, PERF.md).  It replaces a grid of one block a symbol (204,800 B:
+// one block an SM, a 16 x 8192 x 100 frame on 100 of the 132 SMs, 16 rows
+// in series each, ~83 us on an H100 against 33.6 us of bytes at 3.35
+// TB/s).
 //
 // F = 16384 and 32768: the split form (fft_split.cuh) as one persistent
 // launch, fft_mrc_ring_kernel below: column tiles (the column pass of C
@@ -61,6 +70,7 @@
 #include <cstdint>
 
 #include "fft_split.cuh"
+#include "fft_spread.cuh"
 
 namespace ofdm {
 
@@ -140,11 +150,32 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
     OFDM_FFT_MRC_CASE(1024)
     OFDM_FFT_MRC_CASE(2048)
     OFDM_FFT_MRC_CASE(4096)
-    OFDM_FFT_MRC_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_FFT_MRC_CASE
+}
+
+// F = 8192 (fft_spread.cuh spread_rows): eq = num * inv * scale of each
+// symbol the block ends, stored in reference order as above.
+template <typename E, bool kAligned>
+__global__ void __launch_bounds__(spread::kT, 1)
+fft_mrc_spread_kernel(const spread::Args p) {
+  constexpr int F = spread::kF;
+  auto store = [&](long long item, const float2 (&v)[spread::kM], const float (&inv)[spread::kM],
+                   int j) {
+    const long long row = item * (F - 1);
+#pragma unroll
+    for (int m = 0; m < spread::kM; ++m) {
+      const int t = j + spread::kT * m;
+      if (t == 0) continue;  // DC bin
+      const int o = t < F / 2 ? t + F / 2 - 1 : t - F / 2;
+      const float gain = inv[m] * p.scale;
+      __stcs(p.out_re + row + o, v[m].x * gain);
+      __stcs(p.out_im + row + o, v[m].y * gain);
+    }
+  };
+  spread::spread_rows<E, kAligned, true>(p, store);
 }
 
 // F = 16384 and 32768 (fft_split.cuh ring_loop): one launch over the K S
@@ -204,8 +235,12 @@ cudaError_t ring_fft_mrc(bool int16, const split::RingArgs& p, cudaStream_t stre
 // split table.  Outputs out_re/out_im: [K, S, F-1] in reference order.
 // scratch, slots, lag, counters: at F = 16384 and 32768 the ring [2, slots,
 // A, F] float32, the schedule's lag and its zeroed counters [1 + 2 K S]
-// (ops/fft_plan.py split_ring); unused below.  Returns the cudaError_t of
-// the launch.
+// (ops/fft_plan.py split_ring); at F = 8192 the partials [slots, 2, F, 2]
+// float32, the plan's blocks (slots) and dynamic shared memory (lag) of
+// ops/fft_plan.py spread_plan, checked against the kernel's own with h's
+// planes 16-byte aligned (cudaErrorInvalidValue otherwise), and the zeroed
+// counts [K S] (left zero); unused below.  Returns the cudaError_t of the
+// launch.
 extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
                             int aligned, long long stride_k, long long stride_s,
                             long long stride_a, float scale, int K, int S, int A,
@@ -224,6 +259,22 @@ extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
     return static_cast<int>(F == 16384 ? ofdm::ring_fft_mrc<128>(in_int16 != 0, p, st)
                                        : ofdm::ring_fft_mrc<256>(in_int16 != 0, p, st));
   }
+  if (F == ofdm::spread::kF) {
+    const long long rows = static_cast<long long>(K) * S * A;
+    if (K < 1 || S < 1 || A < 1 || !ofdm::spread::plan_ok(rows, slots, lag, h_re, h_im) ||
+        scratch == nullptr || counters == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const ofdm::spread::Args p{y_re, y_im, stride_k, stride_s, stride_a, rows, S, A, slots,
+                               scale, h_re, h_im, inv, F, reinterpret_cast<const float2*>(tw),
+                               out_re, out_im, scratch, counters};
+    using ofdm::fft_mrc_spread_kernel;
+    return static_cast<int>(
+        in_int16 ? (aligned ? ofdm::spread::launch(fft_mrc_spread_kernel<int16_t, true>, p, st)
+                            : ofdm::spread::launch(fft_mrc_spread_kernel<int16_t, false>, p, st))
+                 : (aligned ? ofdm::spread::launch(fft_mrc_spread_kernel<float, true>, p, st)
+                            : ofdm::spread::launch(fft_mrc_spread_kernel<float, false>, p, st)));
+  }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_k, stride_s, stride_a, scale, K, S, A, h_re,
                     h_im, inv, tw, out_re, out_im, st);
@@ -238,6 +289,13 @@ extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
   }
   return static_cast<int>(err);
 }
+
+#ifdef OFDM_SPREAD_TRACE
+// The stamp buffer of a traced build (fft_spread.cuh spread_trace), or null.
+extern "C" int ofdm_spread_trace_set(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(ofdm::spread::spread_trace, &buf, sizeof(buf)));
+}
+#endif
 
 #ifdef OFDM_RING_TRACE
 // The stamp buffer of a traced build (fft_split.cuh ring_trace), or null.

@@ -17,8 +17,9 @@
 // the last pass register m holds bin j + T m, which is what the MAC reads of
 // h and the store write.  A team is a warp (F = 1024), part of a warp (F <
 // 1024: several teams per warp, __syncwarp with the team's lanes) or a few
-// warps (F >= 2048: a named barrier per team; F = 8192 is one team of 256
-// threads a symbol), so no block-wide barrier falls inside a row.  Past
+// warps (F >= 2048: a named barrier per team; at F = 8192 one team of 256
+// threads a block runs fft_spread.cuh's rows), so no block-wide barrier
+// falls inside a row.  Past
 // 8192 a row does not fit one SM's registers beside its sums: fft_split.cuh
 // runs F = 16384 and 32768 as two passes of this FFT at F = n1 and 128.  Exchange slot e + e / M spreads every pass's transpose over
 // the 32 banks.  The inter-pass twiddles come from a float32 table computed
@@ -50,7 +51,9 @@ namespace wfft {
 
 // F -> radices (R0 = M, the values a thread holds; R2 = 1 for two passes),
 // teams per symbol P, threads per block, and the blocks an SM should hold
-// (__launch_bounds__).  Mirrored by ops/fft_plan.py RADICES.
+// (__launch_bounds__).  Mirrored by ops/fft_plan.py PLANS.  At F = 8192 the
+// kernels take the radices and the team (T = 256) only: fft_spread.cuh runs
+// the team in a block of its own layout.
 template <int F>
 struct Plan;
 #define OFDM_WARP_PLAN(F_, R0_, R1_, R2_, P_, BLOCK_, MINB_)              \

@@ -13,9 +13,13 @@
 // fft_mrc.cu), whose bins land in natural order: no permutation to undo.
 // F from 64 to 32768: below F = 1024 a team is 8 or 16 lanes and a block of
 // 128 threads holds 2 (F = 256, 512) or 4 (F = 64, 128) symbols, so each
-// h row a team reads serves that many symbols from L1; F = 8192 is one team
-// of 256 threads a symbol (218-224 registers, 204,800 B); F = 16384 and
-// 32768 run the split form (fft_split.cuh) as one persistent launch,
+// h row a team reads serves that many symbols from L1; F = 8192 runs
+// mrc_demod_spread_kernel below on fft_spread.cuh's spread_rows (the S A
+// rows spread over one block an SM in contiguous ranges, one 256-thread
+// team a block, the sums over a symbol's antennas in registers and across
+// blocks through partials in L2 and a count per symbol; ops/fft_plan.py
+// spread_plan), where one team of 256 threads a symbol ran before (204,800
+// B, one SM a symbol, one SM at S = 1); F = 16384 and 32768 run the split form (fft_split.cuh) as one persistent launch,
 // mrc_demod_ring_kernel below: column tiles and row tiles (8 bins k1 of one
 // symbol over every antenna, Y hc folded from the estimate slice staged in
 // shared memory) taken by ticket, meeting in a ring of symbol slots that L2
@@ -33,6 +37,7 @@
 #include <cstdint>
 
 #include "fft_split.cuh"
+#include "fft_spread.cuh"
 
 namespace ofdm {
 
@@ -104,11 +109,29 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
     OFDM_MRC_DEMOD_CASE(1024)
     OFDM_MRC_DEMOD_CASE(2048)
     OFDM_MRC_DEMOD_CASE(4096)
-    OFDM_MRC_DEMOD_CASE(8192)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_MRC_DEMOD_CASE
+}
+
+// F = 8192 (fft_spread.cuh spread_rows): eq = num * scale / hsqrd of each
+// symbol the block ends, true order.
+template <typename E, bool kAligned>
+__global__ void __launch_bounds__(spread::kT, 1)
+mrc_demod_spread_kernel(const spread::Args p) {
+  auto store = [&](long long item, const float2 (&v)[spread::kM],
+                   const float (&hsqrd)[spread::kM], int j) {
+    const long long row = item * spread::kF;
+#pragma unroll
+    for (int m = 0; m < spread::kM; ++m) {
+      const int t = j + spread::kT * m;
+      const float gain = p.scale / hsqrd[m];
+      __stcs(p.out_re + row + t, v[m].x * gain);
+      __stcs(p.out_im + row + t, v[m].y * gain);
+    }
+  };
+  spread::spread_rows<E, kAligned, false>(p, store);
 }
 
 // F = 16384 and 32768 (fft_split.cuh ring_loop): one launch over the S
@@ -161,8 +184,12 @@ cudaError_t ring_mrc_demod(bool int16, const split::RingArgs& p, cudaStream_t st
 // 32768 its split table.  Outputs out_re/out_im: [S, F], true order.
 // scratch, slots, lag, counters: at F = 16384 and 32768 the ring [2, slots,
 // A, F] float32, the schedule's lag and its zeroed counters [1 + 2 S]
-// (ops/fft_plan.py split_ring); unused below.  Returns the cudaError_t of
-// the launch.
+// (ops/fft_plan.py split_ring); at F = 8192 the partials [slots, 2, F, 2]
+// float32, the plan's blocks (slots) and dynamic shared memory (lag) of
+// ops/fft_plan.py spread_plan, checked against the kernel's own with h's
+// planes 16-byte aligned (cudaErrorInvalidValue otherwise), and the zeroed
+// counts [S] (left zero); unused below.  Returns the cudaError_t of the
+// launch.
 extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                               int aligned, long long stride_s, long long stride_a,
                               float scale, int S, int A, int F, const float* hc_re,
@@ -176,6 +203,22 @@ extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                                   counters, hc_re, hc_im, hsqrd, out_re, out_im};
     return static_cast<int>(F == 16384 ? ofdm::ring_mrc_demod<128>(in_int16 != 0, p, st)
                                        : ofdm::ring_mrc_demod<256>(in_int16 != 0, p, st));
+  }
+  if (F == ofdm::spread::kF) {
+    const long long rows = static_cast<long long>(S) * A;
+    if (S < 1 || A < 1 || !ofdm::spread::plan_ok(rows, slots, lag, hc_re, hc_im) ||
+        scratch == nullptr || counters == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const ofdm::spread::Args p{y_re, y_im, 0, stride_s, stride_a, rows, S, A, slots, scale,
+                               hc_re, hc_im, hsqrd, 0, reinterpret_cast<const float2*>(tw),
+                               out_re, out_im, scratch, counters};
+    using ofdm::mrc_demod_spread_kernel;
+    return static_cast<int>(
+        in_int16 ? (aligned ? ofdm::spread::launch(mrc_demod_spread_kernel<int16_t, true>, p, st)
+                            : ofdm::spread::launch(mrc_demod_spread_kernel<int16_t, false>, p, st))
+                 : (aligned ? ofdm::spread::launch(mrc_demod_spread_kernel<float, true>, p, st)
+                            : ofdm::spread::launch(mrc_demod_spread_kernel<float, false>, p, st)));
   }
   auto run = [&](auto dispatch) {
     return dispatch(F, y_re, y_im, stride_s, stride_a, scale, S, A, hc_re, hc_im, hsqrd,

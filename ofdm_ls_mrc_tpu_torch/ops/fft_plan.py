@@ -29,11 +29,16 @@ buffers ``team_floats(F)``.  Nothing here runs
 a kernel; the wrappers pass ``pass_twiddles`` to the kernels, and the CPU tests
 emulate the kernels' arithmetic on these tables.
 
-Past 8192 one SM cannot hold a row with its sums (16384 complex float32
-values are 128 KB, the register file 256 KB for every thread of the SM), so
-the exact kernels run F = 16384 and 32768 in the four-step split of the
-section "the split form" below (``csrc/fft_split.cuh``), and the bf16 speed
-kernels run F = 8192 to 32768 on its first step.
+At F = 8192 the exact data kernels run the register FFT's team of 256
+threads (32 values a thread, radices 32, 16, 16), one a block, the
+launch's antenna rows spread over the card (``spread_plan``,
+``csrc/fft_spread.cuh``); the last pass's twiddles are products of four of
+its table rows (SPREAD_POWERS).  Past 8192 one SM cannot hold a
+row with its sums (16384 complex float32 values are 128 KB, the register
+file 256 KB for every thread of the SM), so the exact kernels run F = 16384
+and 32768 in the four-step split of the section "the split form" below
+(``csrc/fft_split.cuh``), and the bf16 speed kernels run F = 8192 to 32768
+on its first step.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ import torch
 
 # F -> (radices of the passes, the first being M, the values a thread
 # holds; teams per symbol P; threads per block; blocks an SM should hold).
-# csrc/fft_warp.cuh's OFDM_WARP_PLAN lines hold the same table.
+# csrc/fft_warp.cuh's OFDM_WARP_PLAN lines hold the same table.  At 8192 the
+# kernels take the radices and the team only (``spread_plan``).
 PLANS = {
     64: ((8, 8), 4, 128, 4),
     128: ((16, 8), 4, 128, 4),
@@ -521,6 +527,80 @@ def split_ring_smem_bytes(f: int) -> int:
     twiddles = len(pass_twiddles_np(n1)) + len(pass_twiddles_np(n2))
     return (split_smem_bytes(SPLIT_TEAMS) + 4 * SPLIT_TEAMS * 2 * SPLIT_K1 * SPLIT_N2
             + 4 * SPLIT_K1 * SPLIT_N2 + 8 * twiddles)
+
+
+# ---------------------------------------------------------------------------
+# The exact data kernels at F = 8192, spread over the card (csrc/fft_spread.cuh)
+# ---------------------------------------------------------------------------
+#
+# A launch of N = K S A antenna rows (row g = item A + a, symbol item = k S +
+# s) runs on B = min(SMs, ceil(N / SPREAD_MIN_ROWS)) blocks; block b takes
+# the rows [b N / B, (b + 1) N / B) (``spread_block_rows``) in order on the
+# register FFT's team at 8192, adding Y conj(h) into its sums in registers.
+# A symbol whose rows lie in one block is stored by it; the others' blocks
+# (``spread_symbol_blocks``) each write a partial into slot
+# ``spread_partial_slot`` of the scratch [B, 2, F, 2] and count in, and the
+# last to count (which skips its own partial when it finds the others
+# counted) adds the partials in block order and stores.
+
+SPREAD_FFT = 8192
+SPREAD_MIN_ROWS = 4       # rows a block, at least: fewer partials a symbol where rows are few
+SPREAD_POWERS = (1, 2, 4, 8)   # the last pass's table rows in shared memory
+
+
+class SpreadPlan(NamedTuple):
+    blocks: int      # B: one block an SM, at most one for each SPREAD_MIN_ROWS rows
+    threads: int     # the register FFT's team at 8192 (T = 256)
+    smem_bytes: int  # dynamic shared memory of a block
+
+
+def spread_smem_bytes() -> int:
+    """Dynamic shared memory of a spread block (csrc/fft_spread.cuh
+    kSmemBytes): the second pass's twiddles (pass_twiddles's first block),
+    the last pass's rows SPREAD_POWERS (Ns entries each), two row buffers
+    (two planes of ``plane_floats`` each), a four-byte flag padded to 16."""
+    p = plan(SPREAD_FFT)
+    ns = tw1 = p.radices[0] * p.radices[1]
+    return 4 * (2 * (tw1 + len(SPREAD_POWERS) * ns) + 2 * 2 * plane_floats(SPREAD_FFT) + 4)
+
+
+def spread_plan(items: int, antennas: int, sms: int = H100_SMS) -> SpreadPlan:
+    """Launch geometry of the spread data kernels over ``items`` symbols of
+    A antenna rows at F = 8192 on a card of ``sms`` SMs: one block an SM,
+    no block with fewer than SPREAD_MIN_ROWS rows where there are rows
+    enough (a streamed symbol of 16 rows is 4 blocks of 4, whose last adds
+    4 partials, not 16 blocks of one).  The C entries check it against
+    their own rule (csrc/fft_spread.cuh plan_ok, with the device's SMs).
+    Raises for an empty launch."""
+    if items < 1 or antennas < 1 or sms < 1:
+        raise ValueError(f"spread_plan: {items} symbols, {antennas} antennas, {sms} SMs")
+    rows = items * antennas
+    blocks = min(sms, -(-rows // SPREAD_MIN_ROWS))
+    return SpreadPlan(blocks, plan(SPREAD_FFT).threads, spread_smem_bytes())
+
+
+def spread_block_rows(rows: int, blocks: int, b: int) -> range:
+    """Rows of block b: [b N / B, (b + 1) N / B) (block_lo)."""
+    return range(rows * b // blocks, rows * (b + 1) // blocks)
+
+
+def spread_row_block(rows: int, blocks: int, g: int) -> int:
+    """The block that takes row g (csrc/fft_spread.cuh block_of)."""
+    return ((g + 1) * blocks - 1) // rows
+
+
+def spread_symbol_blocks(item: int, antennas: int, rows: int, blocks: int) -> range:
+    """The blocks that take rows of symbol ``item``, in the order their
+    partials are added."""
+    return range(spread_row_block(rows, blocks, item * antennas),
+                 spread_row_block(rows, blocks, item * antennas + antennas - 1) + 1)
+
+
+def spread_partial_slot(item: int, antennas: int, rows: int, blocks: int, b: int) -> int:
+    """Slot of block b's partial of symbol ``item`` in the scratch: 0 for the
+    block's first symbol, 1 for its last (a block holds part of at most two
+    symbols, its first and its last)."""
+    return 0 if item == spread_block_rows(rows, blocks, b).start // antennas else 1
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from . import fft_plan
 from . import mrc as mrc_ops
 from .cplx import CArray
 from .pipeline import (_check_dense, _check_rows, _device_route, _exact_table, _ptr,
-                       _rows_aligned, _scale, _split_ring, widen_sc16)
+                       _rows_aligned, _scale, _split_ring, _spread_scratch, widen_sc16)
 
 MRC_DEMOD_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
@@ -51,9 +51,10 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
       y:     [S, A, F] time-domain data rows, cyclic prefix already dropped
              (a view such as ``data[..., cp:]`` is read in place), f32 or
              int16 (sc16 full scale); any strides with contiguous rows.
-             F is a power of two from 64 to 32768 (16384 and 32768 in
-             the split form, one launch on a ring of symbol slots,
-             ``fft_plan.split_ring``); any antenna count.
+             F is a power of two from 64 to 32768 (8192 with the rows
+             spread over the card, ``fft_plan.spread_plan``; 16384 and
+             32768 in the split form, one launch on a ring of symbol
+             slots, ``fft_plan.split_ring``); any antenna count.
       hconj: [A, F] conjugated, DC-zeroed estimate, true order.
       hsqrd: [F] sum_a |h|^2 with the DC bin pinned to 1, true order (at
              F = 16384 and 32768 both start 16-byte aligned).
@@ -78,15 +79,20 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
                  torch.empty((s, f), dtype=torch.float32, device=dev))
     lib = build.load_library()
     st = y.re.stride()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd), dev,
-                                                 fft_plan.SPLIT_K1)
+        if f == fft_plan.SPREAD_FFT:
+            ring, counters, slots, lag = _spread_scratch(s, a, (hconj.re, hconj.im), dev,
+                                                         stream)
+        else:
+            ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd),
+                                                     dev, fft_plan.SPLIT_K1)
         err = lib.ofdm_mrc_demod(
             y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
             int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,
             hconj.re.data_ptr(), hconj.im.data_ptr(), hsqrd.data_ptr(),
             _exact_table(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
-            _ptr(ring), slots, lag, _ptr(counters), torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(ring), slots, lag, _ptr(counters), stream)
     build.check(lib, err, "mrc_demod")
     launch_counts["mrc_demod"] += 1
     return out

@@ -24,6 +24,10 @@ the speed wrappers raise for any other F.  The JAX package's kernel has
 no upper F (any (2^k, 128) split); the port's kernels stop at 32768, past
 the largest FFT of a public OFDM standard (DVB-T2's 32K mode).
 
+F = 8192 in the exact data kernels spreads a launch's antenna rows over one
+block an SM (``fft_plan.spread_plan``, ``csrc/fft_spread.cuh``): a block's
+rows in sequence, the sums over a symbol's antennas in registers and, where
+its rows span blocks, through partials in a scratch and a count per symbol.
 F = 16384 and 32768 (the exact kernels) and F = 8192 to 32768 (the speed
 kernels) run in the split form of ``fft_plan`` (``csrc/fft_split.cuh``): a
 column pass and each kernel's own row pass.  The pilots run them as
@@ -82,10 +86,12 @@ SPEED_SPLIT_SIZES = fft_plan.SPEED_SPLIT_SIZES       # the speed kernels'
 
 launch_counts: Dict[str, int] = {"pilot_ls": 0, "fft_mrc": 0, "pilot_ls_sum": 0,
                                  "pilot_ls_bf16": 0, "fft_mrc_bf16": 0}
-# The F = 8192 pilot's per-frame counts, by (device, stream): zero between
-# launches (the kernel sets each count it uses back to 0), so the launches of
-# a stream, each after the last, share one buffer.
+# The F = 8192 pilot's per-frame counts and the spread data kernels'
+# per-symbol counts, each by (device, stream): zero between launches (the
+# kernels set each count they use back to 0), so the launches of a stream,
+# each after the last, share one buffer.
 _pilot_counts: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+_spread_counts: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -312,7 +318,8 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
             rows = f == fft_plan.PILOT_ROW_FFT   # a cluster per row: the split table, counts
             counts = None
             if rows:
-                counts = _pilot_counters(fft_plan.pilot_row_counts(k), dev, stream)
+                counts = _zero_counts(_pilot_counts, fft_plan.pilot_row_counts(k), dev,
+                                      stream)
                 clusters = a // fft_plan.pilot_row_rows(a)
                 if clusters > 1:   # the sum's partials, one a cluster of rows
                     scratch = torch.empty((k, clusters, f), dtype=torch.float32, device=dev)
@@ -342,7 +349,8 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
 
 def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
                    exact: bool = True) -> CArray:
-    """FFT + MRC + equalize over data symbols, kernel ``csrc/fft_mrc.cu``;
+    """FFT + MRC + equalize over data symbols, kernel ``csrc/fft_mrc.cu`` (at
+    F = 8192 its rows spread over the card, ``fft_plan.spread_plan``);
     with ``exact=False`` the speed kernel ``fft_mrc_bf16``
     (``csrc/fft_mrc_bf16.cu``: stage 2 on the tensor cores in bf16; from
     F = 8192 one launch on the ring, its row tiles 32 bins k1).
@@ -377,8 +385,12 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     with torch.cuda.device(dev):
         if exact:
             name = "fft_mrc"
-            ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev,
-                                                     fft_plan.SPLIT_K1)
+            if f == fft_plan.SPREAD_FFT:
+                ring, counters, slots, lag = _spread_scratch(k * s, a, (h.re, h.im), dev,
+                                                             stream)
+            else:
+                ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev,
+                                                         fft_plan.SPLIT_K1)
             err = lib.ofdm_fft_mrc(
                 y.re.data_ptr(), y.im.data_ptr(), int(int16),
                 int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
@@ -469,24 +481,49 @@ def _split_ring(items: int, a: int, f: int, estimate, dev: torch.device, k1: int
     if any(t.data_ptr() % 16 for t in estimate):
         raise ValueError(f"the data kernels at F = {f} copy the estimate in 16-byte pieces: "
                          "its planes and gains must start 16-byte aligned")
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else fft_plan.H100_SMS)
-    slots, lag = fft_plan.split_ring(items, a, f, sms, k1)
+    slots, lag = fft_plan.split_ring(items, a, f, _sms(dev), k1)
     dtype = torch.float32 if fft_plan.split_ring_bytes_per_value(k1) == 4 else torch.bfloat16
     ring = torch.empty((2, slots, a, f), dtype=dtype, device=dev)
     counters = torch.zeros(1 + 2 * items, dtype=torch.int32, device=dev)
     return ring, counters, slots, lag
 
 
-def _pilot_counters(n: int, dev: torch.device, stream: int) -> torch.Tensor:
-    """At least ``n`` int32 zeros: the F = 8192 pilot's counts on ``stream``
-    (``_pilot_counts``, ``fft_plan.pilot_row_counts``; a larger buffer
-    where a launch needs more)."""
+def _sms(dev: torch.device) -> int:
+    """SMs of the card (the plans' budget); an H100's off the card."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return fft_plan.H100_SMS
+
+
+def _spread_scratch(items: int, a: int, estimate, dev: torch.device, stream: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """(partials [B, 2, 8192, 2] float32: two slots a block of (re, im)
+    pairs; the per-symbol counts; B; the block's dynamic shared memory) of
+    a spread data kernel's launch over ``items`` symbols of A rows
+    (``fft_plan.spread_plan``), in the order of the C entries' (scratch,
+    counters, slots, lag).  As ``_split_ring``, the scratch lives until the
+    caller's last reference goes.  The kernel copies the ``estimate``
+    planes' rows in 16-byte pieces: each must start 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in estimate):
+        raise ValueError("the data kernels at F = 8192 copy the estimate in 16-byte pieces: "
+                         "its planes must start 16-byte aligned")
+    plan = fft_plan.spread_plan(items, a, _sms(dev))
+    partials = torch.empty((plan.blocks, 2, fft_plan.SPREAD_FFT, 2), dtype=torch.float32,
+                           device=dev)
+    counts = _zero_counts(_spread_counts, items, dev, stream)
+    return partials, counts, plan.blocks, plan.smem_bytes
+
+
+def _zero_counts(pool: Dict, n: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros of ``pool`` (``_pilot_counts``: the F =
+    8192 pilot's counts, ``fft_plan.pilot_row_counts``; ``_spread_counts``:
+    the spread data kernels' per symbol) on ``stream``: a larger buffer
+    where a launch needs more."""
     key = (dev.index, stream)
-    buf = _pilot_counts.get(key)
+    buf = pool.get(key)
     if buf is None or buf.numel() < n or buf.device != dev:
         buf = torch.zeros(n, dtype=torch.int32, device=dev)
-        _pilot_counts[key] = buf
+        pool[key] = buf
     return buf
 
 

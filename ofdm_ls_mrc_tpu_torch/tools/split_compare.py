@@ -2,11 +2,12 @@
 comparing two trees of the port (or two chunk sizes) on one card.
 
   python ofdm_ls_mrc_tpu_torch/tools/split_compare.py [--chunk N] [--ring-mb M]
-      [--pilots] [--antennas A]
+      [--pilots] [--antennas A] [--sizes F,F,...]
 
 On one A x F x 100-symbol frame (A = 16 unless ``--antennas``) (f32 rows, and the same rows as int16) at
-F = 8192, 16384 and 32768: ``fused_pipeline`` exact (the register FFT at
-8192; above it one launch of ``fft_mrc_ring_kernel``, the column and row
+F = 8192, 16384 and 32768 (or ``--sizes``): ``fused_pipeline`` exact (at
+8192 ``fft_mrc_spread_kernel``, the frame's rows spread over the card; above
+it one launch of ``fft_mrc_ring_kernel``, the column and row
 tiles of the split form on a ring of L2-resident symbol slots, beside the
 zeroing of its counters) and ``exact=False`` (one launch of
 ``fft_mrc_bf16_ring_kernel``: the same column tiles, storing bf16, and the
@@ -18,7 +19,13 @@ the column pass and ``pilot_rows_kernel``), each time the sum of its
 kernels, each kernel's time and, where a separate column pass ran, its and
 the row pass's shares (torch.profiler device time, the mean over n calls of
 a trace opened with spin kernels that are left out), and ``torch.fft.fft``
-over the same rows beside each frame and pilot.  ``--pilots`` times the
+over the same rows beside each frame and pilot, and each data kernel's
+bound (its bytes, each input read once and each output written once, at
+3.35 TB/s).  At F = 8192 and below it also times the exact data kernels on
+one streamed symbol (S = 1, ``push_symbol``'s shape) and ``fused_pipeline``
+over a capture of 20 sc16 frames (``demod_capture``'s data shape, cp
+stripped).  ``--sizes`` picks the F (any of 256-32768); below 8192 only the
+exact data kernels and ``torch.fft.fft`` are timed.  ``--pilots`` times the
 pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
 with its clusters capped at 1, 2, 4 and 8 blocks
 (``fft_plan.split_pilot_clusters`` in place of the plan's choice) and
@@ -51,8 +58,17 @@ from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 
 ANTENNAS, SYMBOLS = 16, 101
 SIZES = (8192, 16384, 32768)
+CAPTURE = 20      # sc16 frames of the capture leg (F <= 8192)
 PAD = 16          # spin kernels at the head of a trace
 CALLS = 5
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (published)
+
+
+def data_bytes(s: int, a: int, f: int, in_bytes: int, demod: bool, k: int = 1) -> int:
+    """Bytes a data kernel must move over k frames of s symbols: the rows
+    (two planes of in_bytes), h and the gains in, the output ([.., S, F - 1]
+    or mrc_demod's [S, F]) out."""
+    return k * (s * a * f * 2 * in_bytes + a * f * 8 + f * 4 + s * (f if demod else f - 1) * 8)
 
 
 def device_split(fn, n: int) -> dict:
@@ -119,7 +135,11 @@ def main() -> int:
                     help=f"antennas of the frame (default {ANTENNAS})")
     ap.add_argument("--clusters", action="store_true",
                     help="time the exact split pilot at each cluster bound")
+    ap.add_argument("--sizes", default=",".join(map(str, SIZES)),
+                    help="comma-separated F to time (default %(default)s; below 8192 the "
+                         "exact data kernels only)")
     args = ap.parse_args()
+    sizes = [int(v) for v in args.sizes.split(",")]
     if not torch.cuda.is_available():
         print("split_compare: no CUDA device", file=sys.stderr)
         return 1
@@ -136,7 +156,8 @@ def main() -> int:
     if args.clusters:
         return cluster_bounds(dev, card)
     res = {}
-    for f in SIZES:
+    for f in sizes:
+        large = f in SIZES
         rng = np.random.default_rng(f)
         z = 0.1 * (rng.standard_normal((SYMBOLS, args.antennas, f))
                    + 1j * rng.standard_normal((SYMBOLS, args.antennas, f)))
@@ -148,27 +169,61 @@ def main() -> int:
         hc, hs = h.conj(), 1 / inv
         pilot_c = torch.complex(y.re[0], y.im[0])
         data_c = None if args.pilots else torch.complex(y.re[1:], y.im[1:])
-        sides = {} if args.pilots else {
-            f"frame exact F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv),
-            f"frame exact int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv),
-            f"frame bf16 F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv, exact=False),
-            f"frame bf16 int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv, exact=False),
-            f"mrc_demod F={f}": lambda: fused_mrc.fused_demod(y[1:], hc, hs),
-            f"torch.fft.fft frame rows F={f}": lambda: torch.fft.fft(data_c, dim=-1),
-        }
-        sides.update({
-            f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
-            f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
-            f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
-            f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
-        })
+        s, a = SYMBOLS - 1, args.antennas
+        sides, bounds = {}, {}
+        if not args.pilots:
+            sides.update({
+                f"frame exact F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv),
+                f"frame exact int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv),
+                f"mrc_demod F={f}": lambda: fused_mrc.fused_demod(y[1:], hc, hs),
+                f"mrc_demod int16 F={f}": lambda: fused_mrc.fused_demod(y16[1:], hc, hs),
+                f"torch.fft.fft frame rows F={f}": lambda: torch.fft.fft(data_c, dim=-1),
+            })
+            bounds.update({f"frame exact F={f}": data_bytes(s, a, f, 4, False),
+                           f"frame exact int16 F={f}": data_bytes(s, a, f, 2, False),
+                           f"mrc_demod F={f}": data_bytes(s, a, f, 4, True),
+                           f"mrc_demod int16 F={f}": data_bytes(s, a, f, 2, True)})
+            if large:
+                sides.update({
+                    f"frame bf16 F={f}": lambda: pipe.fused_pipeline(y[1:], h, inv, exact=False),
+                    f"frame bf16 int16 F={f}": lambda: pipe.fused_pipeline(y16[1:], h, inv,
+                                                                           exact=False),
+                })
+            if f <= 8192:   # push_symbol's shape and demod_capture's
+                g = torch.Generator(device=dev).manual_seed(f)
+                cap = CArray(*(torch.randint(-3277, 3277, (CAPTURE, SYMBOLS, a, f), generator=g,
+                                             dtype=torch.int16, device=dev) for _ in range(2)))
+                hk = CArray(*(t[None].expand(CAPTURE, -1, -1).contiguous() for t in (h.re, h.im)))
+                invk = inv[None].expand(CAPTURE, -1).contiguous()
+                sides.update({
+                    f"frame exact S=1 F={f}": lambda: pipe.fused_pipeline(y[1:2], h, inv),
+                    f"mrc_demod S=1 F={f}": lambda: fused_mrc.fused_demod(y[1:2], hc, hs),
+                    f"capture exact sc16 {CAPTURE} frames F={f}": lambda: pipe.fused_pipeline(
+                        cap[:, 1:], hk, invk),
+                })
+                bounds.update({f"frame exact S=1 F={f}": data_bytes(1, a, f, 4, False),
+                               f"mrc_demod S=1 F={f}": data_bytes(1, a, f, 4, True),
+                               f"capture exact sc16 {CAPTURE} frames F={f}":
+                               data_bytes(s, a, f, 2, False, CAPTURE)})
+        if large:
+            sides.update({
+                f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
+                f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
+                f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
+                f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
+            })
         for label, fn in sides.items():
             split = device_split(fn, CALLS)
             res[label] = {"us": sum(split.values()), "kernels": split}
             parts = ", ".join(f"{k.split('(')[0].replace('void ', '')} {v:.1f}"
                               for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
-            print(f"{label}: {res[label]['us']:.1f} us device ({parts}){shares(split)}  [{card}]",
-                  flush=True)
+            bound = ""
+            if label in bounds:
+                res[label]["bound_us"] = bounds[label] / HBM_BYTES_PER_S * 1e6
+                bound = (f"; bound {res[label]['bound_us']:.2f} us ({bounds[label] / 1e6:.2f} MB "
+                         f"at 3.35 TB/s)")
+            print(f"{label}: {res[label]['us']:.1f} us device ({parts}){shares(split)}{bound}  "
+                  f"[{card}]", flush=True)
         del y, y16, h, inv, hc, hs, pilot_c, data_c
         torch.cuda.empty_cache()
     print(json.dumps({"package": ofdm_ls_mrc_tpu_torch.__file__, "card": card,
