@@ -22,7 +22,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    antennas, f32 and int16, cp 0, 1 and 72, 3 frames in one call (one
    cluster each; the cluster shape is printed); pilot_ls and fft_mrc at F =
    64 and 128 x 1, 4, 16 and 64 antennas, f32 and int16, cp 0, 1 and 8, 3
-   frames of 9 symbols in one call; mrc_demod also at F = 64, 4 antennas; the io probes auto, manual2, manual3s and manual4 with
+   frames of 9 symbols in one call; mrc_demod also at F = 64, 4 antennas;
+   fft_mrc and mrc_demod at F = 256, 512, 2048 and 4096 (the side form,
+   csrc/fft_side.cuh: a launch's antenna rows side by side over the card)
+   on a 16 x F x 101 frame, f32 at cp 72, int16 at cp 0 and at cp 1, 64
+   antennas, one streamed symbol and a 20-frame sc16 capture, each leg
+   twice (one launch of each kernel a run), then each timed once on the
+   f32 frame beside its plain version, torch.fft.fft of its rows and its
+   bound (the records 'fft_mrc F=...', 'mrc_demod F=...'; phase 2 prints
+   their ptxas lines and holds them to 16 B of spills, none for mrc_demod
+   at 2048); the io probes auto, manual2, manual3s and manual4 with
    compute 0 and 2 on one 16 x 1024 x 101 f32 frame, manual4 also at ts 1,
    and manual2 and manual4s at ts 8 on a 4-antenna frame, auto also at
    every A of 1, 3, 16, 17 and 64 x F of 128, 1024 and 4096 on 13 symbols;
@@ -1563,6 +1572,141 @@ def speed_phase(workdir, dev, card, golden, sim, reset_counts, counts, measure, 
     return rec, records
 
 
+def side_ptxas_lines(report: str):
+    """Registers, spills and the launch's dynamic shared memory of every
+    instantiation of the exact data kernels' side form (F = 256, 512, 2048
+    and 4096, csrc/fft_side.cuh) from nvcc's -Xptxas -v report, with the
+    plan of one 16 x F x 100 frame."""
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan
+
+    for name, f, t, aligned, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+(fft_mrc|mrc_demod)_side_kernelILi(\d+)E(\w)"
+            r"Lb(\d)E[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers", report, re.S):
+        f = int(f)
+        plan = fft_plan.side_plan(SYMBOLS - 1, ANTENNAS, f)
+        yield (f"ptxas {name}_side<{f}, {'int16' if t == 's' else 'float'}, "
+               f"{'cp.async' if aligned == '1' else 'element'} loads> (rows side by side over the "
+               f"card): {regs} registers, {spill} B spilled, {plan.smem_bytes} B dynamic shared "
+               f"memory, {plan.threads} threads a block ({fft_plan.side_teams(f)} row teams), "
+               f"{plan.blocks} blocks for a {ANTENNAS}x{f}x{SYMBOLS - 1} frame")
+
+
+def side_legs(dev, card, reset_counts, counts, measure, errs_abs) -> tuple:
+    """Phase 3's legs of the exact data kernels' side form (F = 256, 512,
+    2048, 4096): fused_pipeline (exact) and fused_demod against their plain
+    versions at max-rel below KERNEL_TOL on a 16 x F x 101 frame (f32 at cp
+    72, int16 at cp 0 and at cp 1: the element loads), 64 antennas, one
+    streamed symbol (S = 1) and a capture of CAPTURE_FRAMES sc16 frames (the
+    split-phase kernel on its 2,000 symbols), each leg twice, the counts set
+    to 0 just before each and read just after; then one short timing of each
+    kernel on the f32 frame beside its plain version, torch.fft.fft of its
+    rows and its bound.  Returns (the legs' record, the kernel records
+    'fft_mrc F=...' and 'mrc_demod F=...')."""
+    import torch
+
+    from ofdm_ls_mrc_tpu_torch.ops import fft as fft_ops
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan, fused_mrc, ls
+    from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+    from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+    t_legs = time.perf_counter()
+    rec, records = {}, []
+    s = SYMBOLS - 1
+    for f in fft_plan.SIDE_FFT_SIZES:
+        g = torch.Generator(device=dev).manual_seed(f)
+        x_f = ls.pad_pilot(np.exp(2j * np.pi * np.random.default_rng(f).random(f - 1)).astype(
+            np.complex64), dev)
+
+        def rows(shape, dtype, g=g):
+            if dtype == "int16":
+                return CArray(*(torch.randint(-3277, 3277, shape, generator=g, dtype=torch.int16,
+                                              device=dev) for _ in range(2)))
+            return CArray(*(0.1 * torch.randn(shape, generator=g, device=dev) for _ in range(2)))
+
+        legs = {}
+        for label, a, k, cp, dtype in (("f32 cp 72", ANTENNAS, 0, CP, "f32"),
+                                       ("int16 cp 0", ANTENNAS, 0, 0, "int16"),
+                                       ("int16 cp 1", ANTENNAS, 0, 1, "int16"),
+                                       ("64 antennas f32 cp 72", 64, 0, CP, "f32"),
+                                       ("S = 1 f32 cp 72", ANTENNAS, 0, CP, "f32"),
+                                       (f"capture of {CAPTURE_FRAMES} sc16 frames", ANTENNAS,
+                                        CAPTURE_FRAMES, 0, "int16")):
+            frame = rows((max(k, 1), SYMBOLS, a, f + cp), dtype)
+            y = CArray(frame.re[..., cp:], frame.im[..., cp:])
+            h, inv = pipe.estimate_pilot_plain(y[:, 0], x_f)
+            hconj, hsqrd = ls.estimate_channel_full(fft_ops.fft(pipe.widen_sc16(y[0, 0])), x_f)
+            data = y[:, 1:2] if label.startswith("S = 1") else y[:, 1:]
+            if not k:
+                data, h, inv = data[0], h[0], inv[0]
+            # fused_demod takes [S, A, F]: the capture's symbols as one run.
+            flat = data if not k else CArray(data.re.reshape(-1, a, f), data.im.reshape(-1, a, f))
+            want = pipe.fused_pipeline_plain(data, h, inv).to_numpy()
+            want2 = fused_mrc.fused_demod_plain(flat, hconj, hsqrd).to_numpy()
+            rels, launches = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                reset_counts()
+                got = pipe.fused_pipeline(data, h, inv)
+                got2 = fused_mrc.fused_demod(flat, hconj, hsqrd)
+                torch.cuda.synchronize()
+                n = counts()
+                launches.append({"fft_mrc": n["fft_mrc"], "mrc_demod": n["mrc_demod"]})
+                require(launches[-1] == {"fft_mrc": 1, "mrc_demod": 1},
+                        f"side F={f} {label}: launches {launches[-1]}, want one of each")
+                got, got2 = got.to_numpy(), got2.to_numpy()
+                rels.append((max_rel(got, want), max_rel(got2, want2)))
+                errs_abs[f"fft_mrc F={f}"] = max(errs_abs.get(f"fft_mrc F={f}", 0.0),
+                                                 max_abs(got, want))
+                errs_abs[f"mrc_demod F={f}"] = max(errs_abs.get(f"mrc_demod F={f}", 0.0),
+                                                   max_abs(got2, want2))
+            print(f"check side F={f} {label} ({max(k, 1)} x {data.shape[-3]} x {a} x {f}): "
+                  f"fft_mrc max-rel {rels[0][0]:.3e}, {rels[1][0]:.3e}; mrc_demod "
+                  f"{rels[0][1]:.3e}, {rels[1][1]:.3e}; launches {launches[0]}")
+            for r in rels:
+                require(max(r) < KERNEL_TOL, f"side F={f} {label}: max-rel {max(r):.3e} >= "
+                                             f"{KERNEL_TOL}")
+            legs[label] = {"max_rel": rels, "launches": launches}
+            del frame, y, data, flat, want, want2, got, got2
+        # One short timing of each kernel on the f32 frame.
+        frame = rows((SYMBOLS, ANTENNAS, f + CP), "f32")
+        y = CArray(frame.re[..., CP:], frame.im[..., CP:])
+        h, inv = pipe.estimate_pilot_plain(y[0], x_f)
+        hconj, hsqrd = ls.estimate_channel_full(fft_ops.fft(y[0]), x_f)
+        data_c = torch.complex(y[1:].re.contiguous(), y[1:].im.contiguous())
+        for name, kernel_fn, plain_fn in (
+                ("fft_mrc", lambda: pipe.fused_pipeline(y[1:], h, inv),
+                 lambda: pipe.fused_pipeline_plain(y[1:], h, inv)),
+                ("mrc_demod", lambda: fused_mrc.fused_demod(y[1:], hconj, hsqrd),
+                 lambda: fused_mrc.fused_demod_plain(y[1:], hconj, hsqrd))):
+            t = measure(kernel_fn, plain_fn, 5, lambda: torch.fft.fft(data_c, dim=-1))
+            nbytes, flops = one_frame_work(name, ANTENNAS, f, s)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            k_ms, k_src = timed(t)
+            print(f"time {name} F={f} side (one frame, f32, cp {CP}): device {us(k_ms)} "
+                  f"({k_src}); plain {us(timed(t, 'plain')[0])}; torch.fft.fft of its rows "
+                  f"{us(timed(t, 'library')[0])}; bound {b_ms * 1e3:.2f} us ({b_by}, "
+                  f"{nbytes / 1e6:.3f} MB)  [{card}]")
+            src, replaces = KERNELS[name]
+            records.append({
+                "name": f"{name} F={f}", "route": "cuda",
+                "source": f"ofdm_ls_mrc_tpu_torch/csrc/{src}", "replaces": replaces,
+                "side": "ofdm_ls_mrc_tpu_torch/csrc/fft_side.cuh side_rows",
+                "side_plan": list(fft_plan.side_plan(s, ANTENNAS, f)),
+                "launches": legs["f32 cp 72"]["launches"][0][name],
+                "launches_legs": {lb: v["launches"][0][name] for lb, v in legs.items()},
+                "max_abs_err": errs_abs[f"{name} F={f}"], "ms": k_ms,
+                "plain_ms": timed(t, "plain")[0], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed(t, "library")[0],
+                "time_source": {"ms": k_src, "plain_ms": timed(t, "plain")[1],
+                                "library_ms": timed(t, "library")[1]},
+                "shape": f"{ANTENNAS}x{f}x{SYMBOLS} f32, cp {CP}, one frame"})
+        rec[f"F={f}"] = legs
+        del frame, y, data_c
+        torch.cuda.empty_cache()
+    print(f"phase 3 (side form legs and timings): {time.perf_counter() - t_legs:.1f} s")
+    return rec, records
+
+
 def large_ptxas_lines(report: str):
     """Registers, spills and the launch's dynamic shared memory of every
     instantiation of phase 15's geometry from nvcc's -Xptxas -v report: the
@@ -2752,6 +2896,14 @@ def main() -> int:
     require(len(speed_summary) == 12, f"ptxas report: {len(speed_summary)} speed kernels at F = "
                                       f"256, {FFT} and 4096, want 12")
     print("\n".join(speed_summary))
+    side_summary = list(side_ptxas_lines(ptxas.getvalue()))
+    require(len(side_summary) == 32, f"ptxas report: {len(side_summary)} side-form kernels at "
+                                     "F = 256, 512, 2048 and 4096, want 32")
+    print("\n".join(side_summary))
+    for ln in side_summary:
+        spilled = int(re.search(r"(\d+) B spilled", ln).group(1))
+        require(spilled <= (0 if ln.startswith("ptxas mrc_demod_side<2048") else 16),
+                f"{ln}: spills past the side form's bound")
     probe_summary = list(probe_ptxas_lines(ptxas.getvalue()))
     print("\n".join(probe_summary))
     require(any(ln.startswith("ptxas burn_tile") for ln in probe_summary),
@@ -2875,6 +3027,7 @@ def main() -> int:
         require(err < dma_probe.BURN_TOL,
                 f"{name} {label}: burn at scale 1 off by {err:.3e} >= {dma_probe.BURN_TOL}")
     del pre, pim
+    side, side_records = side_legs(dev, card, reset_counts, counts, measure, errs_abs)
 
     # -- 4. the main path through the port ----------------------------------
     cfg = FrameConfig(num_antennas=ANTENNAS, fft_size=FFT, cyclic_prefix=CP,
@@ -3275,6 +3428,7 @@ def main() -> int:
                     "source": f"ofdm_ls_mrc_tpu_torch/csrc/{KERNELS['pilot_ls'][0]}",
                     "replaces": KERNELS["pilot_ls"][1], **variant,
                     "launches_streaming": sharded["streaming"]["launches"]["pilot_ls_sum"]})
+    records.extend(side_records)
     records.extend(speed_records)
     records.extend(large_records)
     for rec in records:
@@ -3285,7 +3439,7 @@ def main() -> int:
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "ofdm_ls_mrc_tpu" or m.startswith("ofdm_ls_mrc_tpu.")
                     for m in sys.modules), "the JAX package was imported")
-    print(json.dumps({"live": live, "baseline": baseline, "downlink": downlink,
+    print(json.dumps({"side": side, "live": live, "baseline": baseline, "downlink": downlink,
                       "sharded": sharded, "speed": speed, "large_fft": large, "tools": tools,
                       "bench": bench, "card": card}))
     print(json.dumps({"kernels": records}))

@@ -41,7 +41,19 @@
 //     per team in sequence, also at S = 1 (the streaming shape).
 // ptxas (sm_90a): 223-226 registers at F = 1024 (254 for f32 rows on the
 // element path), no spills; 75,776 B of dynamic shared memory a block, so 2 blocks (8 warps)
-// per SM.  F = 4096: 256 threads, 172,032 B, 1 block per SM.
+// per SM.  This kernel runs F = 64, 128 and 1024.
+//
+// F = 256, 512, 2048 and 4096: fft_mrc_side_kernel below on fft_side.cuh's
+// side_rows: 16 values a thread (SidePlan<F>), the launch's K S A antenna
+// rows in contiguous ranges over teams side by side on the card (one 16 x F
+// x 100 frame: 100 blocks of one symbol, 1 row a team at 256 and 512, 4 at
+// 2048, 8 at 4096; ops/fft_plan.py side_plan), the sums in registers, a
+// symbol split over teams added in shared memory in team order and one
+// split over blocks through partials in L2 and a count per symbol; stored
+// as above (ptxas and the times: chip_smoke.py phase 2-3, PERF.md).  It
+// replaces this kernel's grid of ceil(S / G) blocks there (2 symbols of 4
+// teams a block at 256 and 512, a symbol's 16 rows 8 a team in sequence on
+// 100 of the 132 SMs at 2048 and 4096).
 //
 // F = 8192: fft_mrc_spread_kernel below on fft_spread.cuh's spread_rows:
 // the launch's K S A antenna rows spread over one block an SM in
@@ -69,6 +81,7 @@
 
 #include <cstdint>
 
+#include "fft_side.cuh"
 #include "fft_split.cuh"
 #include "fft_spread.cuh"
 
@@ -145,15 +158,37 @@ cudaError_t dispatch_fft_mrc(int F, const void* y_re, const void* y_im,
   switch (F) {
     OFDM_FFT_MRC_CASE(64)
     OFDM_FFT_MRC_CASE(128)
-    OFDM_FFT_MRC_CASE(256)
-    OFDM_FFT_MRC_CASE(512)
     OFDM_FFT_MRC_CASE(1024)
-    OFDM_FFT_MRC_CASE(2048)
-    OFDM_FFT_MRC_CASE(4096)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_FFT_MRC_CASE
+}
+
+// F = 256, 512, 2048, 4096 (fft_side.cuh side_rows): eq = num * inv * scale
+// of bin t of a symbol, stored in reference order as above.
+template <int F, typename E, bool kAligned>
+__global__ void __launch_bounds__(side::Shape<F>::kBlock, side::Shape<F>::kBlocksPerSm)
+fft_mrc_side_kernel(const spread::Args p) {
+  auto gain = [&](int item, int t) {
+    return __ldg(p.gain + (item / p.S) * p.gain_stride + t) * p.scale;
+  };
+  auto store = [&](int item, int t, float2 v, float g) {
+    if (t == 0) return;  // DC bin
+    const int o = t < F / 2 ? t + F / 2 - 1 : t - F / 2;
+    const long long row = static_cast<long long>(item) * (F - 1);
+    __stcs(p.out_re + row + o, v.x * g);
+    __stcs(p.out_im + row + o, v.y * g);
+  };
+  side::side_rows<F, E, kAligned, true>(p, gain, store);
+}
+
+template <int F>
+cudaError_t side_fft_mrc(bool int16, bool aligned, const spread::Args& p, cudaStream_t st) {
+  return int16 ? (aligned ? side::launch<F>(fft_mrc_side_kernel<F, int16_t, true>, p, st)
+                          : side::launch<F>(fft_mrc_side_kernel<F, int16_t, false>, p, st))
+               : (aligned ? side::launch<F>(fft_mrc_side_kernel<F, float, true>, p, st)
+                          : side::launch<F>(fft_mrc_side_kernel<F, float, false>, p, st));
 }
 
 // F = 8192 (fft_spread.cuh spread_rows): eq = num * inv * scale of each
@@ -239,7 +274,9 @@ cudaError_t ring_fft_mrc(bool int16, const split::RingArgs& p, cudaStream_t stre
 // float32, the plan's blocks (slots) and dynamic shared memory (lag) of
 // ops/fft_plan.py spread_plan, checked against the kernel's own with h's
 // planes 16-byte aligned (cudaErrorInvalidValue otherwise), and the zeroed
-// counts [K S] (left zero); unused below.  Returns the cudaError_t of the
+// counts [K S] (left zero); at F = 256, 512, 2048 and 4096 the same with
+// the partials [slots, 2 + teams, F, 2] and the plan of ops/fft_plan.py
+// side_plan; unused at 64, 128 and 1024.  Returns the cudaError_t of the
 // launch.
 extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
                             int aligned, long long stride_k, long long stride_s,
@@ -258,6 +295,21 @@ extern "C" int ofdm_fft_mrc(const void* y_re, const void* y_im, int in_int16,
                                   h_re, h_im, inv, out_re, out_im};
     return static_cast<int>(F == 16384 ? ofdm::ring_fft_mrc<128>(in_int16 != 0, p, st)
                                        : ofdm::ring_fft_mrc<256>(in_int16 != 0, p, st));
+  }
+  if (ofdm::side::covers(F)) {
+    const long long rows = static_cast<long long>(K) * S * A;
+    if (K < 1 || S < 1 || A < 1 || !ofdm::side::plan_ok(F, rows, A, slots, lag, h_re, h_im) ||
+        scratch == nullptr || counters == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const ofdm::spread::Args p{y_re, y_im, stride_k, stride_s, stride_a, rows, S, A, slots,
+                               scale, h_re, h_im, inv, F, reinterpret_cast<const float2*>(tw),
+                               out_re, out_im, scratch, counters};
+    const bool i16 = in_int16 != 0, al = aligned != 0;
+    return static_cast<int>(F == 256    ? ofdm::side_fft_mrc<256>(i16, al, p, st)
+                            : F == 512  ? ofdm::side_fft_mrc<512>(i16, al, p, st)
+                            : F == 2048 ? ofdm::side_fft_mrc<2048>(i16, al, p, st)
+                                        : ofdm::side_fft_mrc<4096>(i16, al, p, st));
   }
   if (F == ofdm::spread::kF) {
     const long long rows = static_cast<long long>(K) * S * A;

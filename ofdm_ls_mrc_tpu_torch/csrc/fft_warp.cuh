@@ -19,7 +19,10 @@
 // 1024: several teams per warp, __syncwarp with the team's lanes) or a few
 // warps (F >= 2048: a named barrier per team; at F = 8192 one team of 256
 // threads a block runs fft_spread.cuh's rows), so no block-wide barrier
-// falls inside a row.  Past
+// falls inside a row.  The exact data kernels at F = 256, 512, 2048 and 4096
+// run the same passes on fft_side.cuh's plans (SidePlan<F>: 16 values a
+// thread, a launch's rows over teams side by side on the card): the pass
+// helpers below take the plan as PL, Plan<F> by default.  Past
 // 8192 a row does not fit one SM's registers beside its sums: fft_split.cuh
 // runs F = 16384 and 32768 as two passes of this FFT at F = n1 and 128.  Exchange slot e + e / M spreads every pass's transpose over
 // the 32 banks.  The inter-pass twiddles come from a float32 table computed
@@ -53,9 +56,12 @@ namespace wfft {
 // teams per symbol P, threads per block, and the blocks an SM should hold
 // (__launch_bounds__).  Mirrored by ops/fft_plan.py PLANS.  At F = 8192 the
 // kernels take the radices and the team (T = 256) only: fft_spread.cuh runs
-// the team in a block of its own layout.
+// the team in a block of its own layout.  The data kernels at 256, 512, 2048
+// and 4096 take fft_side.cuh's SidePlan<F> instead; the pilot runs these.
 template <int F>
 struct Plan;
+template <int F>
+struct SidePlan;  // fft_side.cuh's plans (F = 256, 512, 2048, 4096)
 #define OFDM_WARP_PLAN(F_, R0_, R1_, R2_, P_, BLOCK_, MINB_)              \
   template <>                                                            \
   struct Plan<F_> {                                                      \
@@ -72,16 +78,30 @@ OFDM_WARP_PLAN(4096, 32, 16, 8, 2, 256, 1)
 OFDM_WARP_PLAN(8192, 32, 16, 16, 1, 256, 1)
 #undef OFDM_WARP_PLAN
 
-template <int F>
+// The exchange's padding of a plan: one float after every kPad positions,
+// M unless the plan sets kPad (fft_side.cuh: 32 where a team is a warp or
+// more and M = 16, so that a warp's 32 consecutive positions stay in one run).
+template <typename PL, typename = void>
+struct PadOf {
+  static constexpr int value = PL::R0;
+};
+template <typename PL>
+struct PadOf<PL, decltype(void(PL::kPad))> {
+  static constexpr int value = PL::kPad;
+};
+
+// The row geometry of a plan PL (Plan<F>, or fft_side.cuh's SidePlan<F>).
+template <int F, typename PL = Plan<F>>
 struct Geo {
-  using P_ = Plan<F>;
+  using P_ = PL;
   static constexpr int M = P_::R0;
+  static constexpr int kPad = PadOf<PL>::value;   // exchange padding stride
   static constexpr int T = F / M;                  // threads per row
   static constexpr int P = P_::P;                  // teams per symbol
   static constexpr int kBlock = P_::kBlock;
   static constexpr int kTeams = kBlock / T;        // teams per block
   static constexpr int G = kTeams / P;             // symbols per block
-  static constexpr int kPlane = (F + F / M + 3) / 4 * 4;  // floats per plane
+  static constexpr int kPlane = (F + F / kPad + 3) / 4 * 4;  // floats per plane
   static constexpr int kNeed = 4 * kPlane;         // two buffers of two planes
   static constexpr int kTeamFloats =
       kNeed + (T < 32 ? ((T - kNeed % 32) % 32 + 32) % 32 : 0);
@@ -210,10 +230,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // Stage one row (planes re, im of element type E) into buf: re at buf[0..),
 // im at buf[kPlane..), raw.  Aligned: 16-byte cp.async chunks, thread j
 // taking chunks j, j + T, ...; otherwise element copies.
-template <int F, typename E, bool kAligned>
+template <int F, typename E, bool kAligned, typename PL = Plan<F>>
 __device__ __forceinline__ void stage_row(float* buf, const E* __restrict__ re,
                                           const E* __restrict__ im, int j) {
-  using G_ = Geo<F>;
+  using G_ = Geo<F, PL>;
   E* dre = reinterpret_cast<E*>(buf);
   E* dim = reinterpret_cast<E*>(buf + G_::kPlane);
   if constexpr (kAligned) {
@@ -244,24 +264,25 @@ __device__ __forceinline__ void stage_row(float* buf, const E* __restrict__ re,
 // The row FFT
 // ---------------------------------------------------------------------------
 
-// Exchange slot of position e >= 0: e + e / M.  For the positions a thread
-// touches, slot(base + d) = slot(base) + d + d / M with d a constant (below),
-// so every access is one base register plus an immediate offset.
-template <int F>
+// Exchange slot of position e >= 0: e + e / kPad (kPad = M unless the plan
+// sets it).  For the positions a thread touches, slot(base + d) = slot(base)
+// + d + d / kPad with d a constant (below), so every access is one base
+// register plus an immediate offset.
+template <int F, typename PL = Plan<F>>
 __device__ __forceinline__ int slot(int e) {
-  return e + (e >> log2i(Geo<F>::M));
+  return e + (e >> log2i(Geo<F, PL>::kPad));
 }
-template <int F>
+template <int F, typename PL = Plan<F>>
 __host__ __device__ constexpr int slot_step(int d) {
-  return d + d / Geo<F>::M;
+  return d + d / Geo<F, PL>::kPad;
 }
 
 // Pass with radix R and stride NS on v; twiddles tw (this pass's block of
 // the table) unless it is the first pass.
-template <int F, int R, int NS>
-__device__ __forceinline__ void run_pass(float2 (&v)[Geo<F>::M],
+template <int F, int R, int NS, typename PL = Plan<F>>
+__device__ __forceinline__ void run_pass(float2 (&v)[Geo<F, PL>::M],
                                          const float2* __restrict__ tw, int j) {
-  constexpr int M = Geo<F>::M, T = Geo<F>::T, Q = M / R;
+  constexpr int M = Geo<F, PL>::M, T = Geo<F, PL>::T, Q = M / R;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     if constexpr (NS > 1) {
@@ -277,33 +298,34 @@ __device__ __forceinline__ void run_pass(float2 (&v)[Geo<F>::M],
 // ex + kPlane (im): output r of butterfly b to position base(b) + NS r.
 // base(b) is a multiple of M when NS = 1 (then R = M), and NS r a multiple
 // of M otherwise, so slot(base + NS r) = slot(base) + slot_step(NS r).
-template <int F, int R, int NS>
-__device__ __forceinline__ void write_exchange(const float2 (&v)[Geo<F>::M], float* ex,
+template <int F, int R, int NS, typename PL = Plan<F>>
+__device__ __forceinline__ void write_exchange(const float2 (&v)[Geo<F, PL>::M], float* ex,
                                                int j) {
-  constexpr int M = Geo<F>::M, T = Geo<F>::T, Q = M / R;
+  constexpr int M = Geo<F, PL>::M, T = Geo<F, PL>::T, Q = M / R;
   static_assert((NS == 1 && R == M) || NS % M == 0, "affine exchange slots");
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int b = j + T * q;
-    float* out = ex + slot<F>((b / NS) * NS * R + (b & (NS - 1)));
+    float* out = ex + slot<F, PL>((b / NS) * NS * R + (b & (NS - 1)));
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      out[slot_step<F>(NS * r)] = v[q + Q * r].x;
-      out[Geo<F>::kPlane + slot_step<F>(NS * r)] = v[q + Q * r].y;
+      out[slot_step<F, PL>(NS * r)] = v[q + Q * r].x;
+      out[Geo<F, PL>::kPlane + slot_step<F, PL>(NS * r)] = v[q + Q * r].y;
     }
   }
 }
 
 // Reads positions j + T m (j < T; T a multiple or a divisor of M), so
 // slot(j + T m) = slot(j) + slot_step(T m).
-template <int F>
-__device__ __forceinline__ void read_exchange(float2 (&v)[Geo<F>::M], const float* ex,
+template <int F, typename PL = Plan<F>>
+__device__ __forceinline__ void read_exchange(float2 (&v)[Geo<F, PL>::M], const float* ex,
                                               int j) {
-  constexpr int M = Geo<F>::M, T = Geo<F>::T;
-  const float* in = ex + slot<F>(j);
+  constexpr int M = Geo<F, PL>::M, T = Geo<F, PL>::T;
+  const float* in = ex + slot<F, PL>(j);
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    v[m] = make_float2(in[slot_step<F>(T * m)], in[Geo<F>::kPlane + slot_step<F>(T * m)]);
+    v[m] = make_float2(in[slot_step<F, PL>(T * m)],
+                       in[Geo<F, PL>::kPlane + slot_step<F, PL>(T * m)]);
   }
 }
 

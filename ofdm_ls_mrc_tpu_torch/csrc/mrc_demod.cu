@@ -11,9 +11,15 @@
 // order, gathered back outside.  Here the rows go through the register FFT
 // of csrc/fft_warp.cuh (the same teams, pipeline and exchange as
 // fft_mrc.cu), whose bins land in natural order: no permutation to undo.
-// F from 64 to 32768: below F = 1024 a team is 8 or 16 lanes and a block of
-// 128 threads holds 2 (F = 256, 512) or 4 (F = 64, 128) symbols, so each
-// h row a team reads serves that many symbols from L1; F = 8192 runs
+// F from 64 to 32768: at F = 64 and 128 a team is 8 or 16 lanes and a block
+// of 128 threads holds 4 symbols, so each h row a team reads serves that
+// many symbols from L1; F = 256, 512, 2048 and 4096 run
+// mrc_demod_side_kernel below on fft_side.cuh's side_rows (16 values a
+// thread, the S A rows in contiguous ranges over teams side by side on the
+// card, a symbol split over teams added in shared memory in team order, over
+// blocks through partials in L2 and a count per symbol; ops/fft_plan.py
+// side_plan), where 2 symbols of 4 teams a block (256, 512) and a symbol's
+// rows 8 a team in sequence on 100 SMs (2048, 4096) ran before; F = 8192 runs
 // mrc_demod_spread_kernel below on fft_spread.cuh's spread_rows (the S A
 // rows spread over one block an SM in contiguous ranges, one 256-thread
 // team a block, the sums over a symbol's antennas in registers and across
@@ -31,11 +37,14 @@
 // instructions a row and thread, so issue and latency set the time.  h is
 // 12.8 MB of L2 reads per frame at F = 1024 (one symbol per block).  ptxas
 // (sm_90a): 222-227 registers at F = 1024, no spills,
-// 75,776 B a block; F = 64: 80-85 registers, 19,456 B, 4 symbols a block;
-// F = 2048 with aligned rows spills 220-280 B at 255 registers.
+// 75,776 B a block; F = 64: 80-85 registers, 19,456 B, 4 symbols a block.
+// The side kernel: at most 128 registers (512 threads a block; 256 at F =
+// 256, two blocks an SM), none spilled at 2048 and 4096 (the register
+// kernel spilled 220-280 B at 2048 at 255 registers; chip_smoke.py phase 2).
 
 #include <cstdint>
 
+#include "fft_side.cuh"
 #include "fft_split.cuh"
 #include "fft_spread.cuh"
 
@@ -104,15 +113,33 @@ cudaError_t dispatch_mrc_demod(int F, const void* y_re, const void* y_im,
   switch (F) {
     OFDM_MRC_DEMOD_CASE(64)
     OFDM_MRC_DEMOD_CASE(128)
-    OFDM_MRC_DEMOD_CASE(256)
-    OFDM_MRC_DEMOD_CASE(512)
     OFDM_MRC_DEMOD_CASE(1024)
-    OFDM_MRC_DEMOD_CASE(2048)
-    OFDM_MRC_DEMOD_CASE(4096)
     default:
       return cudaErrorInvalidValue;
   }
 #undef OFDM_MRC_DEMOD_CASE
+}
+
+// F = 256, 512, 2048, 4096 (fft_side.cuh side_rows): eq = num * scale / hsqrd
+// of bin t of a symbol, true order.
+template <int F, typename E, bool kAligned>
+__global__ void __launch_bounds__(side::Shape<F>::kBlock, side::Shape<F>::kBlocksPerSm)
+mrc_demod_side_kernel(const spread::Args p) {
+  auto gain = [&](int, int t) { return p.scale / __ldg(p.gain + t); };
+  auto store = [&](int item, int t, float2 v, float g) {
+    const long long row = static_cast<long long>(item) * F;
+    __stcs(p.out_re + row + t, v.x * g);
+    __stcs(p.out_im + row + t, v.y * g);
+  };
+  side::side_rows<F, E, kAligned, false>(p, gain, store);
+}
+
+template <int F>
+cudaError_t side_mrc_demod(bool int16, bool aligned, const spread::Args& p, cudaStream_t st) {
+  return int16 ? (aligned ? side::launch<F>(mrc_demod_side_kernel<F, int16_t, true>, p, st)
+                          : side::launch<F>(mrc_demod_side_kernel<F, int16_t, false>, p, st))
+               : (aligned ? side::launch<F>(mrc_demod_side_kernel<F, float, true>, p, st)
+                          : side::launch<F>(mrc_demod_side_kernel<F, float, false>, p, st));
 }
 
 // F = 8192 (fft_spread.cuh spread_rows): eq = num * scale / hsqrd of each
@@ -188,7 +215,9 @@ cudaError_t ring_mrc_demod(bool int16, const split::RingArgs& p, cudaStream_t st
 // float32, the plan's blocks (slots) and dynamic shared memory (lag) of
 // ops/fft_plan.py spread_plan, checked against the kernel's own with h's
 // planes 16-byte aligned (cudaErrorInvalidValue otherwise), and the zeroed
-// counts [S] (left zero); unused below.  Returns the cudaError_t of the
+// counts [S] (left zero); at F = 256, 512, 2048 and 4096 the same with the
+// partials [slots, 2 + teams, F, 2] and the plan of ops/fft_plan.py
+// side_plan; unused at 64, 128 and 1024.  Returns the cudaError_t of the
 // launch.
 extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                               int aligned, long long stride_s, long long stride_a,
@@ -203,6 +232,21 @@ extern "C" int ofdm_mrc_demod(const void* y_re, const void* y_im, int in_int16,
                                   counters, hc_re, hc_im, hsqrd, out_re, out_im};
     return static_cast<int>(F == 16384 ? ofdm::ring_mrc_demod<128>(in_int16 != 0, p, st)
                                        : ofdm::ring_mrc_demod<256>(in_int16 != 0, p, st));
+  }
+  if (ofdm::side::covers(F)) {
+    const long long rows = static_cast<long long>(S) * A;
+    if (S < 1 || A < 1 || !ofdm::side::plan_ok(F, rows, A, slots, lag, hc_re, hc_im) ||
+        scratch == nullptr || counters == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const ofdm::spread::Args p{y_re, y_im, 0, stride_s, stride_a, rows, S, A, slots, scale,
+                               hc_re, hc_im, hsqrd, 0, reinterpret_cast<const float2*>(tw),
+                               out_re, out_im, scratch, counters};
+    const bool i16 = in_int16 != 0, al = aligned != 0;
+    return static_cast<int>(F == 256    ? ofdm::side_mrc_demod<256>(i16, al, p, st)
+                            : F == 512  ? ofdm::side_mrc_demod<512>(i16, al, p, st)
+                            : F == 2048 ? ofdm::side_mrc_demod<2048>(i16, al, p, st)
+                                        : ofdm::side_mrc_demod<4096>(i16, al, p, st));
   }
   if (F == ofdm::spread::kF) {
     const long long rows = static_cast<long long>(S) * A;

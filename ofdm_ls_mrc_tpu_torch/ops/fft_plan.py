@@ -33,7 +33,11 @@ At F = 8192 the exact data kernels run the register FFT's team of 256
 threads (32 values a thread, radices 32, 16, 16), one a block, the
 launch's antenna rows spread over the card (``spread_plan``,
 ``csrc/fft_spread.cuh``); the last pass's twiddles are products of four of
-its table rows (SPREAD_POWERS).  Past 8192 one SM cannot hold a
+its table rows (SPREAD_POWERS).  At F = 256, 512, 2048 and 4096 they run
+the side form (``side_plan``, ``csrc/fft_side.cuh``): the same passes with
+16 values a thread (``SIDE_PLANS``, ``side_geometry``; the helpers here take
+its ``Plan`` as ``p``), a launch's rows over teams side by side on the
+card; ``PLANS`` there serves the pilot.  Past 8192 one SM cannot hold a
 row with its sums (16384 complex float32 values are 128 KB, the register
 file 256 KB for every thread of the SM), so the exact kernels run F = 16384
 and 32768 in the four-step split of the section "the split form" below
@@ -45,7 +49,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +57,8 @@ import torch
 # F -> (radices of the passes, the first being M, the values a thread
 # holds; teams per symbol P; threads per block; blocks an SM should hold).
 # csrc/fft_warp.cuh's OFDM_WARP_PLAN lines hold the same table.  At 8192 the
-# kernels take the radices and the team only (``spread_plan``).
+# kernels take the radices and the team only (``spread_plan``); at 256, 512,
+# 2048 and 4096 the pilot runs these and the data kernels ``SIDE_PLANS``.
 PLANS = {
     64: ((8, 8), 4, 128, 4),
     128: ((16, 8), 4, 128, 4),
@@ -74,6 +79,7 @@ class Plan(NamedTuple):
     teams_per_symbol: int  # P: team p takes antennas p, p + P, ...
     block: int             # threads per block
     min_blocks: int        # blocks an SM should hold (__launch_bounds__)
+    pad: int = 0           # exchange padding stride: one float after every ``pad`` (0: M)
 
     @property
     def symbols_per_block(self) -> int:
@@ -88,21 +94,23 @@ def plan(f: int) -> Plan:
     return Plan(f, radices, radices[0], f // radices[0], teams, block, min_blocks)
 
 
-def strides(f: int) -> Tuple[int, ...]:
-    """Ns of each pass: the product of the radices before it."""
+def strides(f: int, p: Optional[Plan] = None) -> Tuple[int, ...]:
+    """Ns of each pass: the product of the radices before it (of ``p``, by
+    default ``plan(f)``; so for the helpers below)."""
     out, ns = [], 1
-    for r in plan(f).radices:
+    for r in (p or plan(f)).radices:
         out.append(ns)
         ns *= r
     return tuple(out)
 
 
-def pass_twiddles_np(f: int) -> np.ndarray:
+def pass_twiddles_np(f: int, p: Optional[Plan] = None) -> np.ndarray:
     """[n, 2] float32 (cos, sin) for passes 1..: pass p's block starts after
     the blocks of the passes before it and holds R Ns entries, entry
     r Ns + c = exp(-2 pi i c r / (Ns R)), computed in float64."""
     blocks = []
-    for radix, ns in zip(plan(f).radices[1:], strides(f)[1:]):
+    p = p or plan(f)
+    for radix, ns in zip(p.radices[1:], strides(f, p)[1:]):
         r, c = np.meshgrid(np.arange(radix), np.arange(ns), indexing="ij")
         ang = -2.0 * np.pi * (c * r).astype(np.float64) / (ns * radix)
         blocks.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1, 2))
@@ -115,24 +123,25 @@ def pass_twiddles(f: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(pass_twiddles_np(f)).to(device)
 
 
-def lane_bins(f: int) -> np.ndarray:
+def lane_bins(f: int, p: Optional[Plan] = None) -> np.ndarray:
     """[T, M]: the frequency bin that register m of thread j holds after the
     last pass, j + T m."""
-    p = plan(f)
+    p = p or plan(f)
     return np.arange(p.threads)[:, None] + p.threads * np.arange(p.values)[None, :]
 
 
-def exchange_slot(f: int, e):
+def exchange_slot(f: int, e, p: Optional[Plan] = None):
     """Float offset in an exchange plane of position e: one float of padding
-    after every M, which makes every pass's transpose free of bank
-    conflicts for the radices above."""
-    return e + e // plan(f).values
+    after every M (every ``p.pad`` where the plan sets it), which spreads
+    every pass's transpose over the banks for the radices above."""
+    p = p or plan(f)
+    return e + e // (p.pad or p.values)
 
 
-def plane_floats(f: int) -> int:
+def plane_floats(f: int, p: Optional[Plan] = None) -> int:
     """Floats of one exchange plane: every slot, rounded up to 16 bytes so the
     im plane of a staged row starts 16-byte aligned."""
-    return -(-exchange_slot(f, f) // 4) * 4
+    return -(-exchange_slot(f, f, p) // 4) * 4
 
 
 def smem_bytes(f: int) -> int:
@@ -142,11 +151,11 @@ def smem_bytes(f: int) -> int:
     return 4 * (2 * len(pass_twiddles_np(f)) + p.block // p.threads * team_floats(f))
 
 
-def team_floats(f: int) -> int:
+def team_floats(f: int, p: Optional[Plan] = None) -> int:
     """Floats of a team's shared memory: two buffers of two planes, padded so
     that the teams that share a warp (T < 32) start T banks apart."""
-    t = plan(f).threads
-    need = 4 * plane_floats(f)
+    t = (p or plan(f)).threads
+    need = 4 * plane_floats(f, p)
     return need + ((t - need) % 32 if t < 32 else 0)
 
 
@@ -549,8 +558,8 @@ SPREAD_POWERS = (1, 2, 4, 8)   # the last pass's table rows in shared memory
 
 
 class SpreadPlan(NamedTuple):
-    blocks: int      # B: one block an SM, at most one for each SPREAD_MIN_ROWS rows
-    threads: int     # the register FFT's team at 8192 (T = 256)
+    blocks: int      # B (spread_plan: one block an SM, at most one for each SPREAD_MIN_ROWS rows)
+    threads: int     # threads of a block (spread_plan: the register FFT's team at 8192, 256)
     smem_bytes: int  # dynamic shared memory of a block
 
 
@@ -601,6 +610,119 @@ def spread_partial_slot(item: int, antennas: int, rows: int, blocks: int, b: int
     block's first symbol, 1 for its last (a block holds part of at most two
     symbols, its first and its last)."""
     return 0 if item == spread_block_rows(rows, blocks, b).start // antennas else 1
+
+
+# ---------------------------------------------------------------------------
+# The exact data kernels at F = 256, 512, 2048, 4096: each symbol's antenna
+# rows side by side over the card (csrc/fft_side.cuh)
+# ---------------------------------------------------------------------------
+#
+# A launch of N = K S A antenna rows runs on B = min(blocks an SM x SMs,
+# ceil(N / teams)) blocks of ``side_teams`` teams (``side_plan``); team u of
+# the U = B teams takes the rows [u N / U, (u + 1) N / U) (``side_team_rows``)
+# in order on the side form's register FFT (``side_geometry``: 16 values a
+# thread), adding Y conj(h) into its sums in registers.  A symbol whose rows
+# lie in one team is stored by it; otherwise each of its teams keeps a
+# partial (the team's last symbol in shared memory, its first in the team's
+# slot 2 + t of the scratch [B, 2 + teams, F, 2]) and the block adds them in
+# team order; a symbol that also spans blocks is handed in as at F = 8192
+# (the block's partial in slot ``spread_partial_slot``, a count per symbol,
+# the last block to count adds the partials in block order).
+
+# F -> (radices, threads per block, blocks an SM, exchange padding stride);
+# csrc/fft_side.cuh's OFDM_SIDE_PLAN lines hold the same table.  The padding
+# is 32 where a team is a warp or more (a warp's 32 consecutive positions in
+# one run of the exchange), M = 16 where it is half a warp.
+SIDE_PLANS = {
+    256: ((16, 16), 256, 2, 16),
+    512: ((16, 16, 2), 512, 1, 32),
+    2048: ((16, 16, 8), 512, 1, 32),
+    4096: ((16, 16, 16), 512, 1, 32),
+}
+SIDE_FFT_SIZES = tuple(SIDE_PLANS)
+
+
+def side_geometry(f: int) -> Plan:
+    """The side form's register FFT at F as a ``Plan`` (one team a row, its
+    teams_per_symbol 1): the helpers above take it as ``p``."""
+    if f not in SIDE_PLANS:
+        raise ValueError(f"no side form for F={f}; sizes {SIDE_FFT_SIZES}")
+    radices, block, min_blocks, pad = SIDE_PLANS[f]
+    assert math.prod(radices) == f and max(radices) == radices[0] == 16
+    return Plan(f, radices, radices[0], f // radices[0], 1, block, min_blocks, pad)
+
+
+def side_teams(f: int) -> int:
+    """Teams of a side block: its threads over the T of a row."""
+    p = side_geometry(f)
+    return p.block // p.threads
+
+
+def side_twiddles_np(f: int) -> np.ndarray:
+    """``pass_twiddles_np`` of the side form's radices."""
+    return pass_twiddles_np(f, side_geometry(f))
+
+
+@functools.lru_cache(maxsize=None)
+def side_twiddles(f: int, device: torch.device) -> torch.Tensor:
+    """``side_twiddles_np`` on the device: the table the side kernels read."""
+    return torch.from_numpy(side_twiddles_np(f)).to(device)
+
+
+def side_smem_bytes(f: int) -> int:
+    """Dynamic shared memory of a side block (csrc/fft_side.cuh kSmemBytes):
+    the pass twiddles, each team's two row buffers (``team_floats``), a
+    four-byte flag padded to 16, the block's teams + 1 team boundaries
+    (int32) padded to 16, then four int32 for each boundary (the symbol it
+    splits, its first and last team, its count)."""
+    p = side_geometry(f)
+    teams = side_teams(f)
+    return 4 * (2 * len(side_twiddles_np(f)) + teams * team_floats(f, p) + 4
+                + -(-(teams + 1) // 4) * 4 + 4 * (teams + 1))
+
+
+def side_slots(f: int) -> int:
+    """Partials of a side block in the scratch: its first and last symbol's,
+    then each team's first symbol's."""
+    return 2 + side_teams(f)
+
+
+def side_plan(items: int, antennas: int, f: int, sms: int = H100_SMS) -> SpreadPlan:
+    """Launch geometry of the side data kernels over ``items`` symbols of A
+    antenna rows at F on a card of ``sms`` SMs.  The fullest grid has as
+    many blocks as the card holds at once (``SIDE_PLANS``' blocks an SM), no
+    more than one for each ``side_teams`` rows, so that a team takes one row
+    where the card has teams for every row and otherwise as few in sequence
+    as the card allows.  Of the grids whose teams' chain of rows is at most
+    one row longer, the one with the most blocks that each take whole
+    symbols (B divides ``items``) is taken, since a symbol split over blocks
+    costs its blocks ~1.5 rows of finish (``tools/spread_trace.py``,
+    PERF.md): one 16 x F x 100 frame is 100 blocks of one symbol at 256,
+    512, 2048 (4 rows a team, as on 132 blocks) and 4096 (8, where 132
+    blocks would give 7); a streamed symbol is one block at 256 and 512, 4
+    at 2048 and 8 at 4096, one row a team.  The C entries check it against
+    their own rule (csrc/fft_side.cuh plan_ok, with the device's SMs).
+    Raises for an empty launch."""
+    if items < 1 or antennas < 1 or sms < 1:
+        raise ValueError(f"side_plan: {items} symbols, {antennas} antennas, {sms} SMs")
+    p = side_geometry(f)
+    rows, teams = items * antennas, side_teams(f)
+    full = min(p.min_blocks * sms, -(-rows // teams))
+    chain = -(-rows // (full * teams))
+    blocks = full
+    for b in range(full, 0, -1):
+        if -(-rows // (b * teams)) > chain + 1:
+            break
+        if items % b == 0:
+            blocks = b
+            break
+    return SpreadPlan(blocks, p.block, side_smem_bytes(f))
+
+
+def side_team_rows(rows: int, teams: int, u: int) -> range:
+    """Rows of team u of the launch's U = B x teams: [u N / U, (u + 1) N / U)
+    (csrc/fft_side.cuh team_lo); block b's are those of its teams."""
+    return range(rows * u // teams, rows * (u + 1) // teams)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from . import fft as fft_ops
 from . import fft_plan
 from . import mrc as mrc_ops
 from .cplx import CArray
-from .pipeline import (_check_dense, _check_rows, _device_route, _exact_table, _ptr,
+from .pipeline import (_check_dense, _check_rows, _data_table, _device_route, _ptr,
                        _rows_aligned, _scale, _split_ring, _spread_scratch, widen_sc16)
 
 MRC_DEMOD_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -81,8 +81,8 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
     st = y.re.stride()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if f == fft_plan.SPREAD_FFT:
-            ring, counters, slots, lag = _spread_scratch(s, a, (hconj.re, hconj.im), dev,
+        if f == fft_plan.SPREAD_FFT or f in fft_plan.SIDE_FFT_SIZES:
+            ring, counters, slots, lag = _spread_scratch(s, a, f, (hconj.re, hconj.im), dev,
                                                          stream)
         else:
             ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd),
@@ -91,7 +91,7 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
             y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
             int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,
             hconj.re.data_ptr(), hconj.im.data_ptr(), hsqrd.data_ptr(),
-            _exact_table(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+            _data_table(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
             _ptr(ring), slots, lag, _ptr(counters), stream)
     build.check(lib, err, "mrc_demod")
     launch_counts["mrc_demod"] += 1

@@ -385,8 +385,8 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     with torch.cuda.device(dev):
         if exact:
             name = "fft_mrc"
-            if f == fft_plan.SPREAD_FFT:
-                ring, counters, slots, lag = _spread_scratch(k * s, a, (h.re, h.im), dev,
+            if f == fft_plan.SPREAD_FFT or f in fft_plan.SIDE_FFT_SIZES:
+                ring, counters, slots, lag = _spread_scratch(k * s, a, f, (h.re, h.im), dev,
                                                              stream)
             else:
                 ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev,
@@ -395,7 +395,7 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
                 y.re.data_ptr(), y.im.data_ptr(), int(int16),
                 int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
                 h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
-                _exact_table(f, dev).data_ptr(), out.re.data_ptr(),
+                _data_table(f, dev).data_ptr(), out.re.data_ptr(),
                 out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
         else:
             name = "fft_mrc_bf16"
@@ -447,6 +447,14 @@ def _exact_table(f: int, dev: torch.device) -> torch.Tensor:
     return fft_plan.pass_twiddles(f, dev)
 
 
+def _data_table(f: int, dev: torch.device) -> torch.Tensor:
+    """The exact data kernels' twiddles: at the side sizes the side form's
+    pass twiddles (its own radices), else ``_exact_table``."""
+    if f in fft_plan.SIDE_FFT_SIZES:
+        return fft_plan.side_twiddles(f, dev)
+    return _exact_table(f, dev)
+
+
 def _split_scratch(items: int, a: int, f: int, sizes,
                    dev: torch.device) -> Tuple[Optional[torch.Tensor], int]:
     """(scratch [2, chunk, A, F] float32, chunk) of the chunked split form's
@@ -495,21 +503,25 @@ def _sms(dev: torch.device) -> int:
     return fft_plan.H100_SMS
 
 
-def _spread_scratch(items: int, a: int, estimate, dev: torch.device, stream: int
+def _spread_scratch(items: int, a: int, f: int, estimate, dev: torch.device, stream: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
-    """(partials [B, 2, 8192, 2] float32: two slots a block of (re, im)
-    pairs; the per-symbol counts; B; the block's dynamic shared memory) of
-    a spread data kernel's launch over ``items`` symbols of A rows
-    (``fft_plan.spread_plan``), in the order of the C entries' (scratch,
-    counters, slots, lag).  As ``_split_ring``, the scratch lives until the
-    caller's last reference goes.  The kernel copies the ``estimate``
-    planes' rows in 16-byte pieces: each must start 16-byte aligned."""
+    """(partials [B, slots, F, 2] float32: the slots of a block of (re, im)
+    pairs, two at F = 8192, ``fft_plan.side_slots`` at the side sizes; the
+    per-symbol counts; B; the block's dynamic shared memory) of a spread
+    (F = 8192, ``fft_plan.spread_plan``) or side (``fft_plan.side_plan``)
+    data kernel's launch over ``items`` symbols of A rows, in the order of
+    the C entries' (scratch, counters, slots, lag).  As ``_split_ring``, the
+    scratch lives until the caller's last reference goes.  The kernel copies
+    the ``estimate`` planes' rows in 16-byte pieces: each must start 16-byte
+    aligned."""
     if any(t.data_ptr() % 16 for t in estimate):
-        raise ValueError("the data kernels at F = 8192 copy the estimate in 16-byte pieces: "
+        raise ValueError(f"the data kernels at F = {f} copy the estimate in 16-byte pieces: "
                          "its planes must start 16-byte aligned")
-    plan = fft_plan.spread_plan(items, a, _sms(dev))
-    partials = torch.empty((plan.blocks, 2, fft_plan.SPREAD_FFT, 2), dtype=torch.float32,
-                           device=dev)
+    if f == fft_plan.SPREAD_FFT:
+        plan, slots = fft_plan.spread_plan(items, a, _sms(dev)), 2
+    else:
+        plan, slots = fft_plan.side_plan(items, a, f, _sms(dev)), fft_plan.side_slots(f)
+    partials = torch.empty((plan.blocks, slots, f, 2), dtype=torch.float32, device=dev)
     counts = _zero_counts(_spread_counts, items, dev, stream)
     return partials, counts, plan.blocks, plan.smem_bytes
 

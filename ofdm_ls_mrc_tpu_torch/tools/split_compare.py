@@ -24,9 +24,11 @@ bound (its bytes, each input read once and each output written once, at
 3.35 TB/s).  At F = 8192 and below it also times the exact data kernels on
 one streamed symbol (S = 1, ``push_symbol``'s shape) and ``fused_pipeline``
 over a capture of 20 sc16 frames (``demod_capture``'s data shape, cp
-stripped).  ``--sizes`` picks the F (any of 256-32768); below 8192 only the
-exact data kernels and ``torch.fft.fft`` are timed.  ``--pilots`` times the
-pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
+stripped).  ``--sizes`` picks the F (any of 256-32768); below 8192 the exact
+data kernels (at 256, 512, 2048 and 4096 the side form, ``fft_mrc_side_kernel``
+and ``mrc_demod_side_kernel``: a launch's antenna rows side by side over the
+card), the exact pilot and ``torch.fft.fft`` are timed, the pilot beside its
+bytes bound too.  ``--pilots`` times the pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
 with its clusters capped at 1, 2, 4 and 8 blocks
 (``fft_plan.split_pilot_clusters`` in place of the plan's choice) and
 nothing else.  ``--chunk N`` caps the chunked split form's symbols (frames)
@@ -69,6 +71,12 @@ def data_bytes(s: int, a: int, f: int, in_bytes: int, demod: bool, k: int = 1) -
     (two planes of in_bytes), h and the gains in, the output ([.., S, F - 1]
     or mrc_demod's [S, F]) out."""
     return k * (s * a * f * 2 * in_bytes + a * f * 8 + f * 4 + s * (f if demod else f - 1) * 8)
+
+
+def pilot_bytes(a: int, f: int) -> int:
+    """Bytes the exact pilot must move: the rows (two f32 planes) and X in,
+    h (two planes) and inv out."""
+    return a * f * 8 + f * 8 + a * f * 8 + f * 4
 
 
 def device_split(fn, n: int) -> dict:
@@ -205,12 +213,15 @@ def main() -> int:
                                f"mrc_demod S=1 F={f}": data_bytes(1, a, f, 4, True),
                                f"capture exact sc16 {CAPTURE} frames F={f}":
                                data_bytes(s, a, f, 2, False, CAPTURE)})
+        sides.update({
+            f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
+            f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
+        })
+        bounds[f"pilot exact F={f}"] = pilot_bytes(args.antennas, f)
         if large:
             sides.update({
-                f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
                 f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
                 f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
-                f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
             })
         for label, fn in sides.items():
             split = device_split(fn, CALLS)

@@ -43,10 +43,13 @@ PILOT_GEOMETRIES = [(64, 1), (64, 4), (64, 16), (128, 3), (128, 64), (256, 1), (
 # that leave teams without a row or give them several (1, 3, 5, 16, 64), one
 # data symbol (the streaming shape), and a ragged last block where a block
 # holds 2 symbols (F = 256, 512: an odd symbol count) or 4 (F = 64, 128: the
-# BASELINE 64-subcarrier frames, 8 data symbols, and ragged counts).
+# BASELINE 64-subcarrier frames, 8 data symbols, and ragged counts); at
+# the side form's sizes (256, 512, 2048, 4096) also the full 16 x F x 101
+# frame and 64 antennas (symbols split over teams and blocks).
 FFT_MRC_GEOMETRIES = [(64, 1, 8), (64, 4, 8), (64, 16, 101), (128, 3, 5),
                       (256, 1, 6), (512, 3, 4), (1024, 16, 101), (1024, 1, 3),
                       (1024, 3, 2), (1024, 5, 6), (1024, 64, 5), (2048, 2, 4), (4096, 4, 9)]
+FFT_MRC_GEOMETRIES += [(f, a, s) for f in (256, 512, 2048, 4096) for a, s in ((16, 101), (64, 5))]
 # Cyclic prefixes: 0 and 72 keep rows 16-byte aligned (cp.async loads); 1 and
 # 7 do not (the element-by-element load path).
 DATA_CPS = [0, 1, 7, 72]
@@ -639,6 +642,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 DEMOD_GEOMETRIES = [(64, 1, 9), (64, 4, 17), (128, 3, 10), (256, 5, 7), (512, 3, 5),
                     (1024, 16, 100), (1024, 1, 1), (1024, 64, 4), (2048, 3, 2),
                     (4096, 2, 3)]
+DEMOD_GEOMETRIES += [(f, a, s) for f in (256, 512, 2048, 4096) for a, s in ((16, 100), (64, 4))]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
