@@ -9,9 +9,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    power limit; the card must be compute capability 9.0 (Hopper).
 2. build: compiles csrc/ with nvcc for sm_90a, one process per source, all
    at once (ptxas report printed, then the registers, spills and shared
-   memory of the pilot and the two data kernels at F = 1024, of the pilot
-   and fft_mrc at F = 64 and 128, of the two speed kernels at F = 256, 1024
-   and 4096, and the registers and spills of the probe kernels and their
+   memory of the pilot and the two data kernels at F = 1024, of fft_mrc at
+   F = 64 and 128, of the pilot's push form at F = 64, 128, 256, 512, 2048
+   and 4096 (no spills), of the two speed kernels at F = 256, 1024 and
+   4096, and the registers and spills of the probe kernels and their
    burn).
 3. kernels: each kernel against its plain PyTorch version on the card, max-rel
    below 2e-5 (both sides fp32 FFTs or sums taken in another order):
@@ -22,7 +23,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    antennas, f32 and int16, cp 0, 1 and 72, 3 frames in one call (one
    cluster each; the cluster shape is printed); pilot_ls and fft_mrc at F =
    64 and 128 x 1, 4, 16 and 64 antennas, f32 and int16, cp 0, 1 and 8, 3
-   frames of 9 symbols in one call; mrc_demod also at F = 64, 4 antennas;
+   frames of 9 symbols in one call; every pilot leg also through the
+   sum|h|^2 variant (pilot_ls_sum) against its plain version; at F = 64,
+   128, 256, 512, 2048 and 4096 (the push form) the pilots of a 20-frame
+   sc16 capture, both variants, one launch each, then one timed pilot (4
+   antennas at 64 and 128, 16 above) beside its plain version,
+   torch.fft.fft of its rows and its bytes bound, and the capture's
+   (records 'pilot_ls F=...' at 256-4096); mrc_demod also at F = 64, 4 antennas;
    fft_mrc and mrc_demod at F = 256, 512, 2048 and 4096 (the side form,
    csrc/fft_side.cuh: a launch's antenna rows side by side over the card)
    on a 16 x F x 101 frame, f32 at cp 72, int16 at cp 0 and at cp 1, 64
@@ -433,6 +440,27 @@ def ptxas_lines(report: str, sizes=(FFT,), names=("fft_mrc", "mrc_demod", "pilot
         yield (f"ptxas {name}<{f}, {'int16' if t == 's' else 'float'}, "
                f"{'cp.async' if aligned == '1' else 'element'} loads>: {regs} registers, "
                f"{spill} B spilled, {smem} B dynamic shared memory, {threads}")
+
+
+def push_ptxas_lines(report: str):
+    """Registers, spills and the launch's dynamic shared memory of every
+    instantiation of the exact pilot's push form (F = 64, 128, 256, 512,
+    2048, 4096, csrc/pilot_ls.cu pilot_ls_push_kernel) from nvcc's -Xptxas
+    -v report, with its plan at the main path's antennas (4 at 64 and 128,
+    16 above)."""
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan
+
+    for f, t, aligned, spill, regs in re.findall(
+            r"Compiling entry function '_ZN4ofdm\d+pilot_ls_push_kernelILi(\d+)E(\w)Lb(\d)E"
+            r"[^']*'.*?(\d+) bytes spill stores.*?Used (\d+) registers", report, re.S):
+        f = int(f)
+        a = 4 if f in SMALL_FFT else ANTENNAS
+        plan = fft_plan.pilot_plan(a, f)
+        yield (f"ptxas pilot_ls_push<{f}, {'int16' if t == 's' else 'float'}, "
+               f"{'cp.async' if aligned == '1' else 'element'} loads>: {regs} registers, "
+               f"{spill} B spilled, {plan.smem_bytes} B dynamic shared memory, {plan.threads} "
+               f"threads a block ({a} antennas: {plan.clusters} block(s) x {plan.teams} teams x "
+               f"{plan.rows} rows)")
 
 
 def speed_ptxas_lines(report: str, sizes=(256, FFT, 4096)):
@@ -1707,6 +1735,105 @@ def side_legs(dev, card, reset_counts, counts, measure, errs_abs) -> tuple:
     return rec, records
 
 
+def push_legs(dev, card, reset_counts, counts, measure, errs_abs) -> tuple:
+    """Phase 3's legs of the exact pilot's push form (F = 64, 128, 256,
+    512, 2048, 4096): the pilots of a capture of CAPTURE_FRAMES sc16 frames
+    of 16 antennas (each frame's pilot row read in place), pilot_ls and
+    pilot_ls_sum against their plain versions at max-rel below KERNEL_TOL,
+    the counts set to 0 just before each call and read just after (one
+    launch each); then one timing of one f32 pilot (4 antennas at 64 and
+    128, ANTENNAS above: the main shapes) and of the capture's pilots,
+    each beside its plain version, torch.fft.fft of its rows and its bytes
+    bound.  Returns (the legs' record, the kernel records 'pilot_ls F=...'
+    at 256-4096; phase 11 writes those at 64 and 128)."""
+    import torch
+
+    from ofdm_ls_mrc_tpu_torch.ops import fft_plan, ls
+    from ofdm_ls_mrc_tpu_torch.ops import pipeline as pipe
+    from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
+
+    t_legs = time.perf_counter()
+    rec, records = {}, []
+    for f in fft_plan.PILOT_PUSH_SIZES:
+        g = torch.Generator(device=dev).manual_seed(f)
+        x_f = ls.pad_pilot(np.exp(2j * np.pi * np.random.default_rng(f).random(f - 1)).astype(
+            np.complex64), dev)
+        cap = CArray(*(torch.randint(-3277, 3277, (CAPTURE_FRAMES, 2, ANTENNAS, f), generator=g,
+                                     dtype=torch.int16, device=dev)[:, 0] for _ in range(2)))
+        h_p, inv_p = pipe.estimate_pilot_plain(cap, x_f)
+        h_p, inv_p = h_p.to_numpy(), inv_p.cpu().numpy()
+        launches, rels = {}, []
+        for name, invert in (("pilot_ls", True), ("pilot_ls_sum", False)):
+            torch.cuda.synchronize()
+            reset_counts()
+            h_k, g_k = pipe.estimate_pilot_fused(cap, x_f, invert=invert)
+            torch.cuda.synchronize()
+            launches[name] = counts()[name]
+            require(launches[name] == 1 and sum(counts().values()) == 1,
+                    f"push F={f} capture {name}: launches {counts()}, want one {name}")
+            h_k, g_k = h_k.to_numpy(), g_k.cpu().numpy()
+            s_k, s_p = (1 / g_k, 1 / inv_p) if invert else (g_k, 1 / inv_p)
+            rel = max(max_rel(h_k, h_p), max_rel(s_k, s_p))
+            key = "pilot_ls_sum" if not invert else f"pilot_ls F={f}"
+            errs_abs[key] = max(errs_abs.get(key, 0.0), max_abs(h_k, h_p),
+                                max_abs(g_k, inv_p if invert else 1 / inv_p))
+            require(rel < KERNEL_TOL, f"push F={f} capture {name}: max-rel {rel:.3e} >= "
+                                      f"{KERNEL_TOL}")
+            rels.append(rel)
+        plan = fft_plan.pilot_plan(ANTENNAS, f, CAPTURE_FRAMES)
+        print(f"check pilot push F={f} capture of {CAPTURE_FRAMES} sc16 pilots ({ANTENNAS} x {f}, "
+              f"{plan.clusters} block(s) a frame x {plan.teams} teams): pilot_ls max-rel "
+              f"{rels[0]:.3e}, pilot_ls_sum {rels[1]:.3e}; launches {launches}")
+        # One pilot at the main shape, and the capture's pilots, timed.
+        a = 4 if f in SMALL_FFT else ANTENNAS
+        y = CArray(*(0.1 * torch.randn((a, f), generator=g, device=dev) for _ in range(2)))
+        y_c = torch.complex(y.re, y.im)
+        cap_c = torch.complex(cap.re.float(), cap.im.float())
+        t = measure(lambda: pipe.estimate_pilot_fused(y, x_f),
+                    lambda: pipe.estimate_pilot_plain(y, x_f), 20,
+                    lambda: torch.fft.fft(y_c, dim=-1))
+        t_cap = measure(lambda: pipe.estimate_pilot_fused(cap, x_f),
+                        lambda: pipe.estimate_pilot_plain(cap, x_f), 20,
+                        lambda: torch.fft.fft(cap_c, dim=-1))
+        nbytes, flops = one_frame_work("pilot_ls", a, f, 0)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        cap_bytes = CAPTURE_FRAMES * (ANTENNAS * f * 4 + ANTENNAS * f * 8 + f * 4) + f * 8
+        cb_ms, cb_by = bound_ms(cap_bytes, CAPTURE_FRAMES * (fft_flops(ANTENNAS, f)
+                                                             + 15.0 * ANTENNAS * f))
+        k_ms, k_src = timed(t)
+        p1 = fft_plan.pilot_plan(a, f)
+        print(f"time pilot_ls F={f} push (one {a}x{f} f32 pilot, {p1.clusters} block(s) x "
+              f"{p1.teams} teams x {p1.rows} rows): device {us(k_ms)} ({k_src}); plain "
+              f"{us(timed(t, 'plain')[0])}; torch.fft.fft of its rows "
+              f"{us(timed(t, 'library')[0])}; bound {b_ms * 1e3:.3f} us ({b_by}, "
+              f"{nbytes / 1e6:.4f} MB); capture of {CAPTURE_FRAMES} sc16 pilots: device "
+              f"{us(timed(t_cap)[0])}, plain {us(timed(t_cap, 'plain')[0])}, torch.fft.fft "
+              f"{us(timed(t_cap, 'library')[0])}, bound {cb_ms * 1e3:.3f} us ({cb_by})  [{card}]")
+        rec[f"F={f}"] = {"capture": {"max_rel": rels, "launches": launches},
+                         "plan": list(p1), "ms": k_ms, "plain_ms": timed(t, "plain")[0],
+                         "library_ms": timed(t, "library")[0], "bound_ms": b_ms,
+                         "capture_ms": timed(t_cap)[0], "capture_bound_ms": cb_ms}
+        if f not in SMALL_FFT:
+            src, replaces = KERNELS["pilot_ls"]
+            records.append({
+                "name": f"pilot_ls F={f}", "route": "cuda",
+                "source": f"ofdm_ls_mrc_tpu_torch/csrc/{src}", "replaces": replaces,
+                "push": "ofdm_ls_mrc_tpu_torch/csrc/pilot_ls.cu pilot_ls_push_kernel",
+                "plan": list(p1), "launches": launches["pilot_ls"],
+                "launches_legs": launches, "max_abs_err": errs_abs[f"pilot_ls F={f}"],
+                "ms": k_ms, "plain_ms": timed(t, "plain")[0], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": timed(t, "library")[0],
+                "ms_capture": timed(t_cap)[0], "bound_ms_capture": cb_ms,
+                "time_source": {"ms": k_src, "plain_ms": timed(t, "plain")[1],
+                                "library_ms": timed(t, "library")[1],
+                                "ms_capture": timed(t_cap)[1]},
+                "shape": f"{a}x{f} f32 pilot, one frame"})
+        del cap, cap_c, y, y_c
+        torch.cuda.empty_cache()
+    print(f"phase 3 (push form legs and timings): {time.perf_counter() - t_legs:.1f} s")
+    return rec, records
+
+
 def large_ptxas_lines(report: str):
     """Registers, spills and the launch's dynamic shared memory of every
     instantiation of phase 15's geometry from nvcc's -Xptxas -v report: the
@@ -2888,10 +3015,16 @@ def main() -> int:
     summary = list(ptxas_lines(ptxas.getvalue()))
     require(len(summary) == 12, f"ptxas report: {len(summary)} kernels at F = 1024, want 12")
     print("\n".join(summary))
-    small = list(ptxas_lines(ptxas.getvalue(), SMALL_FFT, ("pilot_ls", "fft_mrc"), 4))
-    require(len(small) == 16, f"ptxas report: {len(small)} pilot_ls/fft_mrc kernels at F = 64 "
-                              "and 128, want 16")
+    small = list(ptxas_lines(ptxas.getvalue(), SMALL_FFT, ("fft_mrc",), 4))
+    require(len(small) == 8, f"ptxas report: {len(small)} fft_mrc kernels at F = 64 and 128, "
+                             "want 8")
     print("\n".join(small))
+    push_summary = list(push_ptxas_lines(ptxas.getvalue()))
+    require(len(push_summary) == 24, f"ptxas report: {len(push_summary)} pilot_ls_push kernels "
+                                     "at F = 64-512, 2048 and 4096, want 24")
+    print("\n".join(push_summary))
+    for ln in push_summary:
+        require(int(re.search(r"(\d+) B spilled", ln).group(1)) == 0, f"{ln}: spills")
     speed_summary = list(speed_ptxas_lines(ptxas.getvalue()))
     require(len(speed_summary) == 12, f"ptxas report: {len(speed_summary)} speed kernels at F = "
                                       f"256, {FFT} and 4096, want 12")
@@ -2935,16 +3068,21 @@ def main() -> int:
     def check_pilot(label, y, x, quiet=False, name="pilot_ls"):
         """estimate_pilot_fused against estimate_pilot_plain: max-rel on h
         and sum_a|h|^2 (inv, its reciprocal, peaks at the weakest bin);
-        max-abs on the kernel's outputs, h and inv."""
+        max-abs on the kernel's outputs, h and inv; then the sum|h|^2
+        variant (invert=False, pilot_ls_sum) on h and the sum.  Returns the
+        larger max-rel."""
         h_k, inv_k = pipe.estimate_pilot_fused(y, x)
+        h_s, sum_k = pipe.estimate_pilot_fused(y, x, invert=False)
         h_p, inv_p = pipe.estimate_pilot_plain(y, x)
         torch.cuda.synchronize()
-        h_k, h_p = h_k.to_numpy(), h_p.to_numpy()
-        inv_k, inv_p = inv_k.cpu().numpy(), inv_p.cpu().numpy()
-        return check(name, label, [(h_k, h_p), (1 / inv_k, 1 / inv_p)],
-                     [(h_k, h_p), (inv_k, inv_p)], quiet=quiet)
+        h_k, h_s, h_p = h_k.to_numpy(), h_s.to_numpy(), h_p.to_numpy()
+        inv_k, inv_p, sum_k = inv_k.cpu().numpy(), inv_p.cpu().numpy(), sum_k.cpu().numpy()
+        rel = check(name, label, [(h_k, h_p), (1 / inv_k, 1 / inv_p)],
+                    [(h_k, h_p), (inv_k, inv_p)], quiet=quiet)
+        return max(rel, check("pilot_ls_sum", label, [(h_s, h_p), (sum_k, 1 / inv_p)],
+                              quiet=quiet))
 
-    errs_abs = {name: 0.0 for name in (*KERNELS, *small_records())}
+    errs_abs = {name: 0.0 for name in (*KERNELS, *small_records(), "pilot_ls_sum")}
     rng = np.random.default_rng(1)
     pilot = np.exp(2j * np.pi * rng.random(FFT - 1)).astype(np.complex64)
     x_full = ls.pad_pilot(pilot, dev)
@@ -3028,6 +3166,7 @@ def main() -> int:
                 f"{name} {label}: burn at scale 1 off by {err:.3e} >= {dma_probe.BURN_TOL}")
     del pre, pim
     side, side_records = side_legs(dev, card, reset_counts, counts, measure, errs_abs)
+    push, push_records = push_legs(dev, card, reset_counts, counts, measure, errs_abs)
 
     # -- 4. the main path through the port ----------------------------------
     cfg = FrameConfig(num_antennas=ANTENNAS, fft_size=FFT, cyclic_prefix=CP,
@@ -3429,6 +3568,7 @@ def main() -> int:
                     "replaces": KERNELS["pilot_ls"][1], **variant,
                     "launches_streaming": sharded["streaming"]["launches"]["pilot_ls_sum"]})
     records.extend(side_records)
+    records.extend(push_records)
     records.extend(speed_records)
     records.extend(large_records)
     for rec in records:
@@ -3439,7 +3579,7 @@ def main() -> int:
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m == "ofdm_ls_mrc_tpu" or m.startswith("ofdm_ls_mrc_tpu.")
                     for m in sys.modules), "the JAX package was imported")
-    print(json.dumps({"side": side, "live": live, "baseline": baseline, "downlink": downlink,
+    print(json.dumps({"side": side, "push": push, "live": live, "baseline": baseline, "downlink": downlink,
                       "sharded": sharded, "speed": speed, "large_fft": large, "tools": tools,
                       "bench": bench, "card": card}))
     print(json.dumps({"kernels": records}))

@@ -151,11 +151,12 @@ def smem_bytes(f: int) -> int:
     return 4 * (2 * len(pass_twiddles_np(f)) + p.block // p.threads * team_floats(f))
 
 
-def team_floats(f: int, p: Optional[Plan] = None) -> int:
-    """Floats of a team's shared memory: two buffers of two planes, padded so
-    that the teams that share a warp (T < 32) start T banks apart."""
+def team_floats(f: int, p: Optional[Plan] = None, buffers: int = 2) -> int:
+    """Floats of a team's shared memory: two buffers (the push form's pilot:
+    one) of two planes, padded so that the teams that share a warp (T < 32)
+    start T banks apart."""
     t = (p or plan(f)).threads
-    need = 4 * plane_floats(f, p)
+    need = 2 * buffers * plane_floats(f, p)
     return need + ((t - need) % 32 if t < 32 else 0)
 
 
@@ -165,6 +166,12 @@ def team_floats(f: int, p: Optional[Plan] = None) -> int:
 
 PILOT_FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 MAX_CLUSTER = 8             # the portable thread block cluster size
+PILOT_PUSH_SIZES = (64, 128, 256, 512, 2048, 4096)   # the push form (pilot_ls_push_kernel)
+PILOT_PUSH_THREADS = 512    # ... threads of a block, at most (its __launch_bounds__)
+PILOT_PUSH_BLOCK = 128      # ... threads of a block while 16 blocks of them hold every row
+PILOT_PUSH_MAX_CLUSTER = 16  # ... blocks of a frame's cluster, at most (the non-portable size)
+PILOT_PUSH_REGS = 128       # ... registers of a thread, at most (__launch_bounds__(512, 1))
+SMEM_PER_SM = 233472        # shared memory of an H100 SM, bytes (1 KB of it reserved a block)
 PILOT_ROW_FFT = 8192        # the pilot's size run as blocks per antenna row
 PILOT_ROW_BLOCKS = 4        # ... a row's blocks: columns 32 r .. 32 r + 31 and rows k1 16 r .. + 15
 PILOT_ROW_K1 = 16           # ... rows k1 of a block's 128-point FFTs
@@ -181,22 +188,43 @@ class PilotPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
 
 
+def pilot_geometry(f: int) -> Plan:
+    """The row FFT of the push form (``PILOT_PUSH_SIZES``): the register
+    plan at 64 and 128, the side form's (16 values a thread) from 256
+    (csrc/pilot_ls.cu PushPlanOf); elsewhere the register plan."""
+    return side_geometry(f) if f in SIDE_PLANS else plan(f)
+
+
+def pilot_twiddles_np(f: int) -> np.ndarray:
+    """``pass_twiddles_np`` of the pilot's radices (``pilot_geometry``)."""
+    return pass_twiddles_np(f, pilot_geometry(f))
+
+
+@functools.lru_cache(maxsize=None)
+def pilot_twiddles(f: int, device: torch.device) -> torch.Tensor:
+    """``pilot_twiddles_np`` on the device: the table the push form copies
+    into shared memory."""
+    return torch.from_numpy(pilot_twiddles_np(f)).to(device)
+
+
 def pilot_team_threads(f: int) -> int:
     """Threads of a pilot team, the unit that takes one antenna row: the
-    register FFT's T, at the split sizes the 8 lanes of each of the row
-    pass block's SPLIT_K1 rows (``split_teams``), at PILOT_ROW_FFT the whole
-    block (a block takes its share of one row)."""
+    row FFT's T (``pilot_geometry``), at the split sizes the 8 lanes of each
+    of the row pass block's SPLIT_K1 rows (``split_teams``), at
+    PILOT_ROW_FFT the whole block (a block takes its share of one row)."""
     if f == PILOT_ROW_FFT:
         return SPLIT_COLUMN_THREADS
-    return SPLIT_K1 * plan(SPLIT_N2).threads if f in SPLIT_FFT_SIZES else plan(f).threads
+    return SPLIT_K1 * plan(SPLIT_N2).threads if f in SPLIT_FFT_SIZES else pilot_geometry(f).threads
 
 
 def pilot_max_threads(f: int) -> int:
-    """Most threads a pilot block holds: 128, or two teams where a team is
-    more than 64 threads (F = 4096: 256); at PILOT_ROW_FFT a block of a
+    """Most threads a pilot block holds: in the push form
+    PILOT_PUSH_THREADS; at F = 1024 four one-warp teams; at PILOT_ROW_FFT a block of a
     row's four (256); at the split sizes the row pass's SPLIT_TEAMS teams.
-    csrc/pilot_ls.cu pilot_max_threads holds the same rule (its
-    __launch_bounds__)."""
+    csrc/pilot_ls.cu kPushMaxThreads and pilot_max_threads hold the same
+    rule (their __launch_bounds__)."""
+    if f in PILOT_PUSH_SIZES:
+        return PILOT_PUSH_THREADS
     if f in SPLIT_FFT_SIZES:
         return SPLIT_TEAMS * pilot_team_threads(f)
     if f == PILOT_ROW_FFT:
@@ -204,15 +232,30 @@ def pilot_max_threads(f: int) -> int:
     return max(128, 2 * plan(f).threads)
 
 
-def pilot_smem_bytes(f: int, teams: int) -> int:
-    """Each team's two buffers, X (two planes of F floats), then the block's
-    sum over its teams (F floats; a block of one team sums into its first
-    buffer); the pilot reads the pass twiddles through L1, not from shared
-    memory.  At the split sizes the row pass's buffers (``split_smem_bytes``),
-    then X of the block's SPLIT_K1 x 128 bins (two planes).  At PILOT_ROW_FFT
-    the column buffers of the block's 32 columns (its row's blocks read
-    them), one 8-lane team buffer for each of its PILOT_ROW_K1 rows k1, then
-    |h|^2 of its PILOT_ROW_K1 x 128 bins (the cluster reads them)."""
+def pilot_sums_width(f: int, clusters: int) -> int:
+    """In the push form, floats of a block's slot of the sums at a rank:
+    the most bins a rank owns, T times ceil(M / C) (``pilot_rank_bins``)."""
+    p = pilot_geometry(f)
+    return p.threads * -(-p.values // clusters)
+
+
+def pilot_smem_bytes(f: int, teams: int, clusters: int = 1) -> int:
+    """In the push form the pass twiddles (``pilot_twiddles_np``), X (two
+    planes of F floats), each team's one row buffer, then, where a frame's
+    cluster is more than one block, a slot of the sums for each of its C
+    blocks (``pilot_sums_width``).  At F =
+    1024 each team's two buffers, X, then the block's sum over its teams (F
+    floats; a block of one team sums into its first buffer); that form reads
+    the pass twiddles through L1.  At the split sizes the row pass's buffers
+    (``split_smem_bytes``), then X of the block's SPLIT_K1 x 128 bins (two
+    planes).  At PILOT_ROW_FFT the column buffers of the block's 32 columns
+    (its row's blocks read them), one 8-lane team buffer for each of its
+    PILOT_ROW_K1 rows k1, then |h|^2 of its PILOT_ROW_K1 x 128 bins (the
+    cluster reads them)."""
+    if f in PILOT_PUSH_SIZES:
+        return 4 * (2 * len(pilot_twiddles_np(f)) + 2 * f
+                    + teams * team_floats(f, pilot_geometry(f), buffers=1)
+                    + (clusters * pilot_sums_width(f, clusters) if clusters > 1 else 0))
     if f in SPLIT_FFT_SIZES:
         return split_smem_bytes(teams) + 4 * 2 * SPLIT_K1 * SPLIT_N2
     if f == PILOT_ROW_FFT:
@@ -228,9 +271,20 @@ def pilot_plan(antennas: int, f: int, frames: int = 1) -> PilotPlan:
     A cluster of C blocks per frame (at the split sizes per SPLIT_K1 bins k1
     of a frame), each block as many one-row teams as its thread cap allows;
     team g = rank * teams + team of the cluster takes rows g, g + C teams,
-    ... (``pilot_team_rows``).  The register sizes take the cluster as large
-    as the rows need, up to the portable 8 (A = 64 at F = 1024: 8 blocks x 4
-    teams x 2 rows).  The split sizes spread the antennas over as many
+    ... (``pilot_team_rows``).  The push form (``PILOT_PUSH_SIZES``) takes
+    as many blocks of up to PILOT_PUSH_BLOCK threads (one team where a team
+    is more) as its rows need, up to PILOT_PUSH_MAX_CLUSTER (past the
+    portable 8: the kernel sets the non-portable size and checks that the
+    card can co-schedule it), and larger blocks, up to PILOT_PUSH_THREADS,
+    only where 16 do not hold every row and the card still holds the
+    launch's blocks at once (``_push_plan``): a block holds at most 4 warps
+    where it can, as 16 warps on one SM measured slower than the parent
+    form (PERF.md, PR 20).  4 x 64 and 16 x
+    64: one block, no cluster; 16 x 256: 2 blocks of 8 teams; 16 x 512: 4
+    of 4; 16 x 2048 and 16 x 4096: 16 of one team; 64 x 2048: 16 of 4
+    teams; 64 x 4096: 16 of 2 teams of 2 rows.  F = 1024 takes the cluster as large
+    as the rows need, up to the portable 8 (A = 64: 8 blocks x 4 teams x 2
+    rows).  The split sizes spread the antennas over as many
     blocks as they have, up to 8, as long as the card holds every block of
     every frame's clusters at once (``split_pilot_clusters``: 16 x 16384 is
     16 clusters of 8 blocks x 2 teams, 16 x 32768 32 of 2 x 4 teams of 2
@@ -252,22 +306,56 @@ def pilot_plan(antennas: int, f: int, frames: int = 1) -> PilotPlan:
     if f == PILOT_ROW_FFT:
         return PilotPlan(PILOT_ROW_BLOCKS * pilot_row_rows(antennas), 1, 1, SPLIT_COLUMN_THREADS,
                          pilot_smem_bytes(f, 1))
-    cap = pilot_max_threads(f) // pilot_team_threads(f)
+    t = pilot_team_threads(f)
+    cap = pilot_max_threads(f) // t
+    if f in PILOT_PUSH_SIZES:
+        return _push_plan(antennas, f, frames)
     return _pilot_plan(antennas, f, min(MAX_CLUSTER, -(-antennas // cap)))
 
 
+def pilot_blocks_per_sm(p: PilotPlan) -> int:
+    """Push blocks of plan p an H100 SM holds at once: by threads (2048),
+    registers (PILOT_PUSH_REGS a thread of the 64 K), shared memory
+    (SMEM_PER_SM, 1 KB reserved a block) and the 32-block limit."""
+    return min(32, 2048 // p.threads, 65536 // (PILOT_PUSH_REGS * p.threads),
+               SMEM_PER_SM // (p.smem_bytes + 1024))
+
+
 @functools.lru_cache(maxsize=None)
-def _pilot_plan(antennas: int, f: int, most: int) -> PilotPlan:
-    """``pilot_plan`` with at most ``most`` blocks a cluster:
-    csrc/pilot_ls.cu checks a plan by the same rules."""
+def _push_plan(antennas: int, f: int, frames: int) -> PilotPlan:
+    """The push form's plan (``pilot_plan``): blocks of PILOT_PUSH_BLOCK
+    threads (one team where a team is more), as many as the rows need up to
+    PILOT_PUSH_MAX_CLUSTER; where 16 such blocks do not hold every row, the
+    largest blocks (up to PILOT_PUSH_THREADS) whose launch of ``frames``
+    frames the card still holds at once (``pilot_blocks_per_sm``), else the
+    largest: one 64 x 2048 pilot is 16 blocks of 4 one-row teams, a capture
+    of 20 is 16 blocks of one team of 4 rows a frame (320 blocks, 3 an SM)
+    where 16 of 4 teams (one an SM) ran 1.3x the parent form (PERF.md, PR
+    20)."""
     t = pilot_team_threads(f)
-    cap = pilot_max_threads(f) // t
+    base = max(1, PILOT_PUSH_BLOCK // t)
+    most = min(PILOT_PUSH_MAX_CLUSTER, -(-antennas // base))
+    widest = min(PILOT_PUSH_THREADS // t, max(base, -(-antennas // most)))
+    plans = [_pilot_plan(antennas, f, most, teams) for teams in range(widest, base - 1, -1)]
+    for p in plans:
+        if frames * p.clusters <= H100_SMS * pilot_blocks_per_sm(p):
+            return p
+    return plans[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_plan(antennas: int, f: int, most: int, cap: int = 0) -> PilotPlan:
+    """``pilot_plan`` with at most ``most`` blocks a cluster and ``cap``
+    teams a block (0: the kernel's thread cap): csrc/pilot_ls.cu checks a
+    plan by the same rules."""
+    t = pilot_team_threads(f)
+    cap = cap or pilot_max_threads(f) // t
     clusters = most
     teams = min(cap, -(-antennas // clusters))
     clusters = min(clusters, -(-antennas // teams))   # every block a row
     rows = -(-antennas // (clusters * teams))
     teams = -(-antennas // (clusters * rows))          # no team slot left idle per row
-    return PilotPlan(clusters, teams, rows, teams * t, pilot_smem_bytes(f, teams))
+    return PilotPlan(clusters, teams, rows, teams * t, pilot_smem_bytes(f, teams, clusters))
 
 
 def split_pilot_clusters(antennas: int, f: int, frames: int = 1) -> int:
@@ -319,7 +407,13 @@ def pilot_rank_bins(f: int, clusters: int, rank: int):
     16)), entries e of [i E, (i + 1) E), E = 2048 / G, bin 64 (e // 16) +
     16 r + e % 16, whose sum over the cluster's rows it adds in distributed
     shared memory and, the last of its slot across the clusters, over them
-    (``pilot_row_rows``)."""
+    (``pilot_row_rows``).  In the push form rank r owns the registers [r M
+    / C, (r + 1) M / C) of every lane: bins [T (r M / C), T ((r + 1) M /
+    C)), which the blocks' slots of the sums hold and whose inv it writes."""
+    if f in PILOT_PUSH_SIZES:
+        p = pilot_geometry(f)
+        return range(p.threads * (rank * p.values // clusters),
+                     p.threads * ((rank + 1) * p.values // clusters))
     if f == PILOT_ROW_FFT:   # slot = 4 i + r of the cluster: row i's block r
         n1 = f // SPLIT_N2
         r, i = rank % PILOT_ROW_BLOCKS, rank // PILOT_ROW_BLOCKS

@@ -260,7 +260,9 @@ def _rows_aligned(x: CArray) -> bool:
 def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                          exact: bool = True) -> Tuple[CArray, torch.Tensor]:
     """Pilot LS estimate, kernel ``csrc/pilot_ls.cu``: one launch, one
-    thread block cluster per frame (at F = 8192 four blocks per antenna row,
+    thread block cluster per frame (at F = 64-512 and 2048-4096 the push
+    form: one block a frame where it holds every row, else a cluster of up
+    to 16, the twiddles in shared memory; at F = 8192 four blocks per antenna row,
     a cluster of up to four rows, the sum over the antennas through
     distributed shared memory and per-frame counts; at F = 16384 and 32768 the
     column pass, then a cluster per 8 bins k1 of a frame,
@@ -323,7 +325,12 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                 clusters = a // fft_plan.pilot_row_rows(a)
                 if clusters > 1:   # the sum's partials, one a cluster of rows
                     scratch = torch.empty((k, clusters, f), dtype=torch.float32, device=dev)
-            tw = fft_plan.split_tables(f, False, dev) if rows else _exact_table(f, dev)
+            if rows:
+                tw = fft_plan.split_tables(f, False, dev)
+            elif f in fft_plan.PILOT_PUSH_SIZES:
+                tw = fft_plan.pilot_twiddles(f, dev)
+            else:
+                tw = _exact_table(f, dev)
             err = lib.ofdm_pilot_ls(
                 p.re.data_ptr(), p.im.data_ptr(), int(int16),
                 int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,

@@ -24,11 +24,13 @@ bound (its bytes, each input read once and each output written once, at
 3.35 TB/s).  At F = 8192 and below it also times the exact data kernels on
 one streamed symbol (S = 1, ``push_symbol``'s shape) and ``fused_pipeline``
 over a capture of 20 sc16 frames (``demod_capture``'s data shape, cp
-stripped).  ``--sizes`` picks the F (any of 256-32768); below 8192 the exact
+stripped).  ``--sizes`` picks the F (any of 64-32768); below 8192 the exact
 data kernels (at 256, 512, 2048 and 4096 the side form, ``fft_mrc_side_kernel``
 and ``mrc_demod_side_kernel``: a launch's antenna rows side by side over the
-card), the exact pilot and ``torch.fft.fft`` are timed, the pilot beside its
-bytes bound too.  ``--pilots`` times the pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
+card), the exact pilot and ``torch.fft.fft`` are timed, the pilot (and its sum
+variant) beside its bytes bound too, and the pilots of a 20-frame sc16
+capture (at 64 and 128 also of the 4,096-frame 4-antenna capture) beside
+``torch.fft.fft`` over their rows.  ``--pilots`` times the pilots alone.  ``--clusters`` times the exact pilot at F = 16384 and 32768
 with its clusters capped at 1, 2, 4 and 8 blocks
 (``fft_plan.split_pilot_clusters`` in place of the plan's choice) and
 nothing else.  ``--chunk N`` caps the chunked split form's symbols (frames)
@@ -61,6 +63,8 @@ from ofdm_ls_mrc_tpu_torch.ops.cplx import CArray
 ANTENNAS, SYMBOLS = 16, 101
 SIZES = (8192, 16384, 32768)
 CAPTURE = 20      # sc16 frames of the capture leg (F <= 8192)
+SMALL_CAPTURE, SMALL_CAPTURE_ANTENNAS = 4096, 4   # the 4 x 64 x 9 capture's pilots (F = 64, 128)
+SMALL_CAPTURE_FFT = (64, 128)
 PAD = 16          # spin kernels at the head of a trace
 CALLS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (published)
@@ -73,10 +77,10 @@ def data_bytes(s: int, a: int, f: int, in_bytes: int, demod: bool, k: int = 1) -
     return k * (s * a * f * 2 * in_bytes + a * f * 8 + f * 4 + s * (f if demod else f - 1) * 8)
 
 
-def pilot_bytes(a: int, f: int) -> int:
-    """Bytes the exact pilot must move: the rows (two f32 planes) and X in,
-    h (two planes) and inv out."""
-    return a * f * 8 + f * 8 + a * f * 8 + f * 4
+def pilot_bytes(a: int, f: int, in_bytes: int = 4, k: int = 1) -> int:
+    """Bytes the exact pilot must move over k frames: the rows (two planes
+    of in_bytes) and X in, h (two f32 planes) and inv out."""
+    return k * (a * f * 2 * in_bytes + a * f * 8 + f * 4) + f * 8
 
 
 def device_split(fn, n: int) -> dict:
@@ -215,14 +219,26 @@ def main() -> int:
                                data_bytes(s, a, f, 2, False, CAPTURE)})
         sides.update({
             f"pilot exact F={f}": lambda: pipe.estimate_pilot_fused(y[0], x),
+            f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
             f"torch.fft.fft pilot rows F={f}": lambda: torch.fft.fft(pilot_c, dim=-1),
         })
-        bounds[f"pilot exact F={f}"] = pilot_bytes(args.antennas, f)
+        bounds[f"pilot exact F={f}"] = bounds[f"pilot exact sum F={f}"] = pilot_bytes(
+            args.antennas, f)
         if large:
-            sides.update({
-                f"pilot exact sum F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, invert=False),
-                f"pilot bf16 F={f}": lambda: pipe.estimate_pilot_fused(y[0], x, exact=False),
-            })
+            sides[f"pilot bf16 F={f}"] = lambda: pipe.estimate_pilot_fused(y[0], x, exact=False)
+        else:   # demod_capture's pilots: each frame's pilot row read in place
+            g = torch.Generator(device=dev).manual_seed(f + 1)
+            caps = [(CAPTURE, a)] + ([(SMALL_CAPTURE, SMALL_CAPTURE_ANTENNAS)]
+                                     if f in SMALL_CAPTURE_FFT else [])
+            for frames, ant in caps:
+                pcap = CArray(*(torch.randint(-3277, 3277, (frames, 2, ant, f), generator=g,
+                                              dtype=torch.int16, device=dev)[:, 0]
+                                for _ in range(2)))
+                label = f"pilot exact capture sc16 {frames} frames x {ant} antennas F={f}"
+                sides[label] = lambda pcap=pcap: pipe.estimate_pilot_fused(pcap, x)
+                bounds[label] = pilot_bytes(ant, f, 2, frames)
+                cap_c = torch.complex(pcap.re.float(), pcap.im.float())
+                sides[f"torch.fft.fft {label}"] = lambda cap_c=cap_c: torch.fft.fft(cap_c, dim=-1)
         for label, fn in sides.items():
             split = device_split(fn, CALLS)
             res[label] = {"us": sum(split.values()), "kernels": split}

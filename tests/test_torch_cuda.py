@@ -34,11 +34,16 @@ TOL = 2e-5
 # The pilot kernel's clusters (F, antennas): every F, antenna counts that
 # give one block (1, 3), several blocks with idle teams (5), the main path's
 # 4 x 4 teams (16), several rows a team (64), and teams of 8 lanes (64,
-# 128: 16 teams a block, a cluster of 4 at 64 antennas), of 16 lanes (256,
-# 512) and of four warps (4096).
+# 128: 16 teams a block, a cluster of 4 at 64 antennas), of 16 and 32
+# lanes (256, 512: clusters of 2-16), of four and eight warps (2048, 4096:
+# one team a block, clusters of up to 16 past the portable 8, larger
+# blocks at 64 antennas); a rank's registers split unevenly where the
+# cluster does not divide them (17 antennas).
 PILOT_GEOMETRIES = [(64, 1), (64, 4), (64, 16), (128, 3), (128, 64), (256, 1), (256, 5),
                     (256, 16), (512, 3), (1024, 1), (1024, 3), (1024, 5), (1024, 16),
-                    (1024, 64), (2048, 16), (4096, 5), (4096, 16), (4096, 64)]
+                    (1024, 64), (2048, 16), (4096, 5), (4096, 16), (4096, 64),
+                    (64, 64), (256, 64), (512, 16), (512, 17), (512, 64), (2048, 5),
+                    (2048, 17), (2048, 64), (4096, 3), (4096, 17)]
 # The data kernels' row mapping: every F of the size list, antenna counts
 # that leave teams without a row or give them several (1, 3, 5, 16, 64), one
 # data symbol (the streaming shape), and a ragged last block where a block
@@ -111,7 +116,8 @@ def test_pilot_ls_kernel_matches_plain(dev, f, a, cp, dtype, frames):
 
 @pytest.mark.parametrize("dtype", ["f32", "int16"])
 @pytest.mark.parametrize("cp", [0, 1, 72])
-@pytest.mark.parametrize("f,a", [(64, 4), (1024, 16), (1024, 32), (1024, 64), (4096, 5)])
+@pytest.mark.parametrize("f,a", [(64, 4), (1024, 16), (1024, 32), (1024, 64), (4096, 5),
+                                 (128, 64), (256, 16), (512, 64), (2048, 16), (4096, 64)])
 def test_pilot_ls_sum_variant_matches_plain(dev, f, a, cp, dtype):
     """invert=False: the kernel writes sum_a |h|^2 itself (the sharded
     receivers' partial sum), counted as pilot_ls_sum; compared as the sum,
@@ -198,6 +204,38 @@ def test_pilot_ls_refuses_a_plan_off_its_layout(dev):
     assert launch(plan) == 0
     for bad in (plan._replace(rows=2), plan._replace(smem_bytes=plan.smem_bytes + 16),
                 fft_plan.PilotPlan(9, 2, 1, 64, fft_plan.pilot_smem_bytes(1024, 2))):
+        assert launch(bad) == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("f,a", [(256, 16), (2048, 64), (4096, 16)])
+def test_pilot_push_refuses_a_plan_off_its_layout(dev, f, a):
+    """The push form's C entry checks its plan too: a wrong row count,
+    shared memory off its layout, or a cluster past 16 returns
+    cudaErrorInvalidValue (1); the plan itself launches."""
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    frame, pilot = frame_on(dev, f, a, 1, 0, "f32")
+    x_full = ls.pad_pilot(pilot, dev)
+    y = frame[0]
+    h = torch.empty((2, a, f), device=dev)
+    inv = torch.empty(f, device=dev)
+    lib = build.load_library()
+    tw = fft_plan.pilot_twiddles(f, dev)
+
+    def launch(p):
+        return lib.ofdm_pilot_ls(
+            y.re.data_ptr(), y.im.data_ptr(), 0, 1, 0, y.re.stride(0), 1.0, 1, a, f,
+            p.clusters, p.teams, p.rows, p.smem_bytes, x_full.re.data_ptr(),
+            x_full.im.data_ptr(), tw.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), inv.data_ptr(),
+            1, None, 0, None, torch.cuda.current_stream(dev).cuda_stream)
+
+    plan = fft_plan.pilot_plan(a, f)
+    assert launch(plan) == 0
+    for bad in (plan._replace(rows=plan.rows + 1),
+                plan._replace(smem_bytes=plan.smem_bytes + 16),
+                fft_plan.PilotPlan(17, 1, 1, plan.threads // plan.teams,
+                                   fft_plan.pilot_smem_bytes(f, 1, 17))):
         assert launch(bad) == 1
     torch.cuda.synchronize()
 

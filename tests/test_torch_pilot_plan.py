@@ -11,6 +11,19 @@ kernel's order) is held within 1e-6 relative to estimate_pilot_plain's sum
 and to the JAX estimate_pilot_fused's (Pallas, interpret mode), each on its
 own h: float32 sums of the same terms in another order.
 
+At F = 64, 128, 256, 512, 2048 and 4096 (fft_plan.PILOT_PUSH_SIZES) the
+kernel is the push form instead: one row a team where the card has teams
+for every row, C blocks a frame (no cluster where one block holds every
+row, up to 16 past the portable 8), the twiddles in shared memory, and each
+team's sums pushed into its slot of the shared memory of the rank that owns
+the bins, which adds the C x teams slots in slot order.  Its plan, the
+source's rules and a NumPy mirror of its arithmetic (its factorization,
+pilot_geometry; the table it copies, pilot_twiddles_np; the sum's order)
+are held below against estimate_pilot_plain, the JAX estimate_pilot_fused in
+interpret mode (F >= 256) and the golden estimate (64, 128) within TOL =
+5e-5 (tests/test_torch_pipeline.py's bound: both sides are float32 FFTs of
+other factorizations, the sum taken in another order).
+
 At F = 8192 (fft_plan.PILOT_ROW_FFT) the kernel takes 4 blocks per antenna
 row instead, F = 64 x 128 split across them, in clusters of up to 4 rows,
 and the sum over the antennas is a tree: the cluster's rows through
@@ -31,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from ofdm_ls_mrc_tpu.golden import dsp as jdsp
 from ofdm_ls_mrc_tpu.golden.io import plane_to_sc16
 from ofdm_ls_mrc_tpu.ops import fastpath as jfastpath
 from ofdm_ls_mrc_tpu.ops import pallas_pipeline as jpp
@@ -48,6 +62,8 @@ ANTENNAS = range(1, 65)
 SMEM_PER_BLOCK = 232448   # H100: 227 KB opt-in per block
 SOURCE = Path(fp.__file__).resolve().parent.parent / "csrc" / "pilot_ls.cu"
 ROW_F = fp.PILOT_ROW_FFT
+PUSH = fp.PILOT_PUSH_SIZES
+PUSH_ANTENNAS = (1, 3, 4, 5, 16, 64)
 TOL = 5e-5
 
 
@@ -59,9 +75,12 @@ def emulate_sum(abs2: np.ndarray, p: fp.PilotPlan) -> np.ndarray:
     """sum_a |h|^2 [F] from |h|^2 [A, F] as the kernel forms it, in
     float32: per-team partials over the team's rows, the block's sum over
     its teams, then each rank's share of the bins summed over the C
-    blocks."""
+    blocks (F = 1024); in the push form (``push_sum``) every team's partial
+    added in slot order by the bins' owner."""
     a, f = abs2.shape
     abs2 = abs2.astype(np.float32)
+    if f in PUSH:
+        return push_sum(abs2, p)[0]
     blocks = np.zeros((p.clusters, f), np.float32)
     for rank in range(p.clusters):
         for team in range(p.teams):
@@ -297,28 +316,31 @@ def test_row_cluster_mirror_matches_plain_and_jax(a, dtype):
 
 @pytest.mark.parametrize("f", SIZES)
 def test_plan_fits_the_card(f):
-    """A portable cluster (at most 8 blocks; at PILOT_ROW_FFT up to 16, the
-    H100's most with the non-portable size allowed), the kernel's thread
-    cap, the rows a team needs and no more, and shared memory within a
-    block's 227 KB whose regions that take 16-byte copies (the team
-    buffers, X) start 16-byte aligned."""
+    """A portable cluster (at most 8 blocks; at PILOT_ROW_FFT and in the
+    push form up to 16, the H100's most with the non-portable size
+    allowed), the kernel's thread cap, the rows a team needs and no more,
+    and shared memory within a block's 227 KB whose regions that take
+    16-byte copies (the team buffers, X) start 16-byte aligned."""
     t = fp.pilot_team_threads(f)
     # The split sizes' teams are the row pass's 8-lane teams of 128 bins.
     team_f = fp.SPLIT_N2 if f in fp.SPLIT_FFT_SIZES else f
+    push = f in fp.PILOT_PUSH_SIZES
     for a in ANTENNAS:
         p = fp.pilot_plan(a, f)
         assert p.threads == p.teams * t <= fp.pilot_max_threads(f) <= 1024
-        assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams) <= SMEM_PER_BLOCK
+        assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams, p.clusters) <= SMEM_PER_BLOCK
         if f == ROW_F:   # blocks of a row in a cluster of rows: one block's share of one row
             assert p.rows == p.teams == 1 and 4 <= p.clusters <= 16
             assert p.clusters == fp.PILOT_ROW_BLOCKS * fp.pilot_row_rows(a)
             assert fp.split_column_smem_bytes(f // fp.SPLIT_N2) % 16 == 0
             continue
-        assert 1 <= p.clusters <= fp.MAX_CLUSTER == 8
+        most = fp.PILOT_PUSH_MAX_CLUSTER if push else fp.MAX_CLUSTER
+        assert 1 <= p.clusters <= most == (16 if push else 8)
         assert p.rows == -(-a // (p.clusters * p.teams))
-        assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams)
+        assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams, p.clusters)
         assert p.smem_bytes <= SMEM_PER_BLOCK
-        assert fp.team_floats(team_f) % 4 == 0 and (p.teams * fp.team_floats(team_f)) % 4 == 0
+        tf = (fp.team_floats(f, fp.pilot_geometry(f), 1) if push else fp.team_floats(team_f))
+        assert tf % 4 == 0 and (p.teams * tf) % 4 == 0
         assert p.clusters * p.teams * p.rows < a + p.clusters * p.rows  # < 1 idle team a block
 
 
@@ -327,7 +349,7 @@ def test_plan_fits_the_card(f):
     (64, 1024, (8, 4, 2)),   # 8 blocks x 4 teams x 2 rows
     (1, 1024, (1, 1, 1)),
     (1, 4096, (1, 1, 1)),
-    (16, 4096, (8, 2, 1)),   # teams of four warps, two a block
+    (16, 4096, (16, 1, 1)),  # the push form: one team of eight warps a block
     (16, 256, (2, 8, 1)),    # teams of 16 lanes, eight a block
     (1, 64, (1, 1, 1)),      # the 64-subcarrier configs: teams of 8 lanes
     (4, 64, (1, 4, 1)),
@@ -395,6 +417,21 @@ def test_emulated_split_matches_plain_and_jax(a):
     assert max_rel(got, 1 / np.asarray(inv3).reshape(f)) < 1e-6
 
 
+@pytest.mark.parametrize("a", [5, 16, 64])
+def test_emulated_split_at_1024_matches_plain(a):
+    """F = 1024's cluster (pilot_ls_kernel): the teams' sums added into the
+    block's, then each rank's bins over the C blocks, within 1e-6 of the
+    plain version's sum."""
+    f = 1024
+    rng = np.random.default_rng(a)
+    z = 0.1 * (rng.standard_normal((a, f)) + 1j * rng.standard_normal((a, f)))
+    pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+    h, inv = pipe.estimate_pilot_plain(CArray.from_numpy(z.astype(np.complex64), "cpu"),
+                                       tls.pad_pilot(pilot, "cpu"))
+    got = emulate_sum(h.abs2().numpy(), fp.pilot_plan(a, f))
+    assert np.all(np.isfinite(got)) and max_rel(got, 1 / inv.numpy()) < 1e-6
+
+
 @pytest.mark.parametrize("a,k", [(1, 1), (4, 1), (16, 1), (64, 1), (16, 20), (6, 3)])
 def test_row_cluster_wrapper_hands_the_kernel_its_buffers(monkeypatch, a, k):
     """estimate_pilot_fused at F = 8192 on a recording library: the plan
@@ -445,3 +482,345 @@ def test_row_cluster_wrapper_hands_the_kernel_its_buffers(monkeypatch, a, k):
         assert tuple(part.shape) == (k, clusters, ROW_F) and part.dtype == torch.float32
     else:
         assert args[21] is None
+
+
+# ---------------------------------------------------------------------------
+# The push form (F = 64, 128, 256, 512, 2048, 4096)
+# ---------------------------------------------------------------------------
+
+def push_sum(abs2: np.ndarray, p: fp.PilotPlan):
+    """The push form's sum over the antennas of one frame, float32: team g
+    = rank teams + team adds its rows' |h|^2 in row order from 0; each
+    block adds its teams' sums in team order; with one block that is the
+    sum, else block b writes its partial of bin t = j + T m into slot b of
+    rank o(m) = ((m + 1) C - 1) // M (position t - T (o M // C)), and rank
+    r adds the C slots of its bins [T (r M // C), T ((r + 1) M // C)) in rank
+    order.  Returns (the sums [F], how often each bin was written, how often
+    each (rank, slot, position) was written)."""
+    a, f = abs2.shape
+    geo = fp.pilot_geometry(f)
+    t, m_vals, c = geo.threads, geo.values, p.clusters
+    width = fp.pilot_sums_width(f, c)
+    recv = np.full((c, c, width), np.nan, np.float32)
+    filled = np.zeros((c, c, width), int)
+    bins = np.arange(f)
+    owner = ((bins // t + 1) * c - 1) // m_vals
+    pos = bins - t * (owner * m_vals // c)
+    partial = np.zeros((c, f), np.float32)
+    for rank in range(c):
+        for team in range(p.teams):
+            acc = np.zeros(f, np.float32)
+            for row in fp.pilot_team_rows(a, p, rank, team):
+                acc = (acc + abs2[row]).astype(np.float32)
+            partial[rank] = (partial[rank] + acc).astype(np.float32)
+        recv[owner, rank, pos] = partial[rank]
+        filled[owner, rank, pos] += 1
+    out = np.full(f, np.nan, np.float32)
+    written = np.zeros(f, int)
+    for rank in range(c):
+        own = np.asarray(fp.pilot_rank_bins(f, c, rank))
+        s = np.zeros(len(own), np.float32)
+        for b in range(c):
+            s = (s + recv[rank, b, :len(own)]).astype(np.float32)
+        out[own] = s
+        written[own] += 1
+    return out, written, filled
+
+
+def emulate_push_rows(x: np.ndarray) -> np.ndarray:
+    """The push form's FFT of rows x [n, F], complex64, on its plan
+    (``pilot_geometry``) and the table it copies into shared memory
+    (``pilot_twiddles_np``): thread j of a team holds positions j + T m in
+    register m; each pass runs its butterflies b = j + T q (twiddle, R-point
+    DFT) and writes all but the last into the exchange plane at
+    ``exchange_slot``; bin j + T m from register m (``lane_bins``)."""
+    f = x.shape[-1]
+    p = fp.pilot_geometry(f)
+    m_vals, t = p.values, p.threads
+    tab = fp.pilot_twiddles_np(f)
+    tab = (tab[:, 0] + 1j * tab[:, 1]).astype(np.complex64)
+    pos = np.arange(t)[:, None] + t * np.arange(m_vals)[None, :]
+    regs = x.astype(np.complex64)[:, pos]                   # [n, T, M]
+    plane = np.full((x.shape[0], fp.plane_floats(f, p)), np.nan, np.complex64)
+    passes = list(zip(p.radices, fp.strides(f, p)))
+    off = 0
+    for k, (radix, ns) in enumerate(passes):
+        if k > 0:
+            regs = plane[:, fp.exchange_slot(f, pos, p)]
+        q_count = m_vals // radix
+        for q in range(q_count):
+            b = np.arange(t) + t * q
+            slots = q + q_count * np.arange(radix)
+            v = regs[:, :, slots]
+            if k > 0:
+                v = (v * tab[off + np.arange(radix)[None, :] * ns + (b % ns)[:, None]]).astype(
+                    np.complex64)
+            k_ = np.arange(radix)
+            dft = np.exp(-2j * np.pi * np.outer(k_, k_) / radix).astype(np.complex64)
+            regs[:, :, slots] = v @ dft.T
+        if k > 0:
+            off += radix * ns
+        if k + 1 < len(passes):
+            b = (np.arange(t)[:, None] + t * np.arange(q_count)[None, :]).reshape(-1)
+            dst = ((b // ns) * ns * radix + b % ns)[:, None] + ns * np.arange(radix)[None, :]
+            vals = np.stack([regs[:, :, q + q_count * np.arange(radix)]
+                             for q in range(q_count)], 2)
+            plane[:, fp.exchange_slot(f, dst, p)] = vals.reshape(x.shape[0], -1, radix)
+    out = np.full(x.shape, np.nan, np.complex64)
+    out[:, fp.lane_bins(f, p)] = regs
+    return out
+
+
+def push_mirror(re_: np.ndarray, im_: np.ndarray, x_full: CArray, scale: float):
+    """csrc/pilot_ls.cu pilot_ls_push_kernel on K frames [K, A, F] in
+    numpy: each row's FFT (``emulate_push_rows``), h = Y conj(X) scale /
+    |X|^2 in float32 as the kernel forms it (den = scale / |X|^2, then the
+    products), the sum as ``push_sum``.  Returns (h [K, A, F] complex64,
+    the sums [K, F] float32, how often each (frame, bin) was written, and
+    each slot position)."""
+    k_, a, f = re_.shape
+    p = fp.pilot_plan(a, f, k_)
+    y = emulate_push_rows((re_.astype(np.float32) + 1j * im_.astype(np.float32)).astype(
+        np.complex64).reshape(-1, f)).reshape(k_, a, f)
+    xr, xi = x_full.re.numpy(), x_full.im.numpy()
+    den = (np.float32(scale) / (xr * xr + xi * xi)).astype(np.float32)
+    vr, vi = y.real.astype(np.float32), y.imag.astype(np.float32)
+    hr = ((vr * xr + vi * xi) * den).astype(np.float32)
+    hi = ((vi * xr - vr * xi) * den).astype(np.float32)
+    sums = np.empty((k_, f), np.float32)
+    written = np.zeros((k_, f), int)
+    filled = []
+    for k in range(k_):
+        sums[k], written[k], fl = push_sum(hr[k] * hr[k] + hi[k] * hi[k], p)
+        filled.append(fl)
+    return (hr + 1j * hi).astype(np.complex64), sums, written, filled
+
+
+def push_rows(rng, shape, dtype):
+    z = 0.1 * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    if dtype == "int16":
+        return plane_to_sc16(z.real), plane_to_sc16(z.imag)
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("a", PUSH_ANTENNAS)
+@pytest.mark.parametrize("f", PUSH)
+def test_push_plan_covers_rows_and_bins_and_fits(f, a, k):
+    """The push plan: every antenna row is one (rank, team, step), a row
+    for every block and no team more than the plan's rows; each bin's sum
+    has one owner and each owner's slots are written once by the teams;
+    the block within PILOT_PUSH_THREADS threads and 227 KB of shared memory
+    (its 16-byte regions aligned), a cluster of at most 16, one row a team
+    where 16 blocks of the cap have teams for every row."""
+    p = fp.pilot_plan(a, f, k)
+    geo = fp.pilot_geometry(f)
+    assert p.threads == p.teams * geo.threads <= fp.PILOT_PUSH_THREADS == fp.pilot_max_threads(f)
+    assert 1 <= p.clusters <= fp.PILOT_PUSH_MAX_CLUSTER == 16
+    assert p.smem_bytes == fp.pilot_smem_bytes(f, p.teams, p.clusters) <= SMEM_PER_BLOCK
+    assert (2 * len(fp.pilot_twiddles_np(f))) % 4 == 0 and fp.team_floats(f, geo, 1) % 4 == 0
+    assert p.rows == -(-a // (p.clusters * p.teams))
+    assert p.clusters * p.teams * p.rows < a + p.clusters * p.rows   # < 1 idle team a block
+    base = max(1, fp.PILOT_PUSH_BLOCK // geo.threads)   # teams of a 128-thread block
+    cap = fp.PILOT_PUSH_THREADS // geo.threads
+    if a <= fp.PILOT_PUSH_MAX_CLUSTER * base:   # one row a team, at most 4 warps a block
+        assert p.rows == 1 and p.threads <= max(fp.PILOT_PUSH_BLOCK, geo.threads)
+    else:                                       # 16 blocks, larger ones, rows as few as they allow
+        assert p.clusters == 16 and p.rows == -(-a // (16 * cap))
+    assert (p.clusters == 1) == (a <= base)     # one block where it holds every row
+    seen = {}
+    for rank in range(p.clusters):
+        for team in range(p.teams):
+            rows = fp.pilot_team_rows(a, p, rank, team)
+            assert len(rows) <= p.rows
+            for step, row in enumerate(rows):
+                assert row not in seen
+                seen[row] = (rank, team, step)
+    assert sorted(seen) == list(range(a))
+    assert {r for r, _, _ in seen.values()} == set(range(p.clusters))
+    abs2 = np.random.default_rng(a).random((a, f)).astype(np.float32)
+    _, written, filled = push_sum(abs2, p)
+    assert np.all(written == 1)
+    for rank in range(p.clusters):   # each block's slot of the owner's bins written once
+        n = len(fp.pilot_rank_bins(f, p.clusters, rank))
+        assert np.all(filled[rank][:, :n] == 1) and not filled[rank][:, n:].any()
+        assert n % 4 == 0 and fp.pilot_rank_bins(f, p.clusters, rank).start % 4 == 0
+
+
+def test_push_plan_shapes():
+    """The main shapes: one block where it holds every row, else the
+    antennas over as many blocks as the rows need."""
+    want = {(4, 64): (1, 4, 1), (4, 128): (1, 4, 1), (16, 64): (1, 16, 1),
+            (16, 256): (2, 8, 1), (16, 512): (4, 4, 1), (16, 2048): (16, 1, 1),
+            (16, 4096): (16, 1, 1), (64, 64): (4, 16, 1), (64, 256): (8, 8, 1),
+            (64, 512): (16, 4, 1), (64, 2048): (16, 4, 1), (64, 4096): (16, 2, 2)}
+    for (a, f), shape in want.items():
+        assert fp.pilot_plan(a, f)[:3] == shape, (a, f)
+
+
+@pytest.mark.parametrize("a,f,k,shape", [
+    (64, 2048, 1, (16, 4, 1)),    # one frame: 16 blocks of 4 one-row teams
+    (64, 2048, 3, (16, 4, 1)),    # 48 blocks of one an SM: still one wave
+    (64, 2048, 20, (16, 1, 4)),   # 320 blocks: one team of 4 rows, 3 blocks an SM
+    (64, 4096, 20, (16, 2, 2)),   # no plan fits one wave: the widest blocks
+    (16, 4096, 20, (16, 1, 1)),
+    (64, 512, 20, (16, 4, 1)),
+])
+def test_push_plan_keeps_a_capture_on_the_card(a, f, k, shape):
+    """Blocks larger than PILOT_PUSH_BLOCK only where the card holds the
+    launch's K x C blocks at once (pilot_blocks_per_sm on 132 SMs); where no
+    block size does, the largest (the fewest rows a team)."""
+    p = fp.pilot_plan(a, f, k)
+    assert p[:3] == shape
+    fits = k * p.clusters <= fp.H100_SMS * fp.pilot_blocks_per_sm(p)
+    widest = fp._push_plan(a, f, 1)
+    assert fits or p == widest
+
+
+def test_push_rules_match_the_kernel_source():
+    """The rules the push plan shares with csrc/pilot_ls.cu: the block and
+    cluster caps, the row plan of each F, the owner of a register, a rank's
+    registers, the slot width and the shared memory the kernel checks the
+    plan's bytes against; F = 1024 stays on pilot_ls_kernel."""
+    src = SOURCE.read_text()
+    assert f"constexpr int kPushMaxThreads = {fp.PILOT_PUSH_THREADS};" in src
+    assert f"constexpr int kPushMaxCluster = {fp.PILOT_PUSH_MAX_CLUSTER};" in src
+    for f in PUSH:
+        side = f in fp.SIDE_PLANS
+        assert fp.pilot_geometry(f) == (fp.side_geometry(f) if side else fp.plan(f))
+        if side:
+            assert (f"struct PushPlanOf<{f}> {{\n  using type = wfft::SidePlan<{f}>;" in src)
+        assert f"OFDM_PILOT_CASE({f}, launch_push)" in src
+    assert "OFDM_PILOT_CASE(1024, launch_pilot)" in src
+    assert "using type = wfft::Plan<F>;" in src
+    assert "static_cast<unsigned>((t / TT + 1) * C - 1) / M" in src
+    assert "rank * width + t - TT * (o * M / C);" in src
+    assert "const int m0 = rank * M / C, m1 = (rank + 1) * M / C;" in src
+    assert "return T * ((M + clusters - 1) / clusters);" in src
+    assert "const int g = rank * teams + team.id;" in src
+    assert ("return static_cast<size_t>(kTwFloats + 2 * F + teams * kTeamFloats +\n"
+            "                               (clusters > 1 ? clusters * width(clusters) : 0)) *"
+            ) in src
+    assert "static constexpr int kNeed = 2 * G::kPlane;" in src
+    # the block's teams in team order, then the blocks' slots in rank order
+    assert "for (int p = 1; p < teams; ++p) {" in src
+    assert "for (int b = 1; b < C; ++b) {" in src
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("a", PUSH_ANTENNAS)
+@pytest.mark.parametrize("f", PUSH)
+def test_push_mirror_matches_plain(f, a, k, dtype):
+    """The mirror on K frames of A rows against estimate_pilot_plain within
+    TOL: h and sum |h|^2 (and the invert = 0 variant's sum is the same
+    numbers), every (frame, bin) written once; at 64 and 128 also against
+    the golden estimate (bins 1..F-1: h = conj(hconj), hsqrd)."""
+    rng = np.random.default_rng(f + 7 * a + k)
+    re_, im_ = push_rows(rng, (k, a, f), dtype)
+    pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+    x_full = tls.pad_pilot(pilot, "cpu")
+    rows = CArray(torch.from_numpy(re_), torch.from_numpy(im_))
+    h, sums, written, _ = push_mirror(re_, im_, x_full, pipe._scale(rows))
+    assert np.all(written == 1) and np.all(np.isfinite(h)) and np.all(np.isfinite(sums))
+    h_p, inv_p = pipe.estimate_pilot_plain(rows, x_full)
+    _, sum_p = pipe.estimate_pilot_plain(rows, x_full, invert=False)
+    assert max_rel(h, h_p.to_numpy()) < TOL
+    assert max_rel(sums, 1 / inv_p.numpy()) < TOL
+    assert max_rel(sums, sum_p.numpy()) < TOL
+    if f in fp.SIDE_PLANS:
+        return
+    scale = np.float32(pipe._scale(rows))
+    for fr in range(k):
+        y = (re_[fr].astype(np.float32) * scale + 1j * (im_[fr].astype(np.float32) * scale))
+        hconj, hsqrd = jdsp.estimate_channel(y.astype(np.complex64), pilot)
+        assert max_rel(h[fr][:, 1:], np.conj(hconj)) < TOL
+        assert max_rel(sums[fr][1:], hsqrd) < TOL
+
+
+@pytest.mark.parametrize("a", PUSH_ANTENNAS)
+@pytest.mark.parametrize("f", [f for f in PUSH if f in fp.SIDE_PLANS])
+def test_push_mirror_matches_jax(f, a):
+    """The mirror against the JAX estimate_pilot_fused (Pallas, interpret
+    mode; F >= 256) within TOL, h and sum |h|^2 in natural order; int16
+    rows at 4 and 16 antennas, f32 at the others (the sc16 scale in h as
+    the kernel takes it)."""
+    dtype = "int16" if a in (4, 16) else "f32"
+    rng = np.random.default_rng(3 * f + a)
+    re_, im_ = push_rows(rng, (a, f), dtype)
+    pilot = np.exp(2j * np.pi * rng.random(f - 1)).astype(np.complex64)
+    x_full = tls.pad_pilot(pilot, "cpu")
+    rows = CArray(torch.from_numpy(re_), torch.from_numpy(im_))
+    h, sums, _, _ = push_mirror(re_[None], im_[None], x_full, pipe._scale(rows))
+    h3, inv3 = jpp.estimate_pilot_fused(JCArray(jnp.asarray(re_), jnp.asarray(im_)),
+                                        jfastpath.prepare_pilot_fast(pilot, f), interpret=True)
+    want_h, want_inv = convert.estimate_from_reference(np.asarray(h3.re), np.asarray(h3.im),
+                                                       np.asarray(inv3), device="cpu")
+    assert max_rel(h[0], want_h.to_numpy()) < TOL
+    assert max_rel(sums[0], 1 / want_inv.numpy()) < TOL
+
+
+def test_push_sum_is_the_same_in_any_order_of_the_teams():
+    """The sum's order is fixed by the teams and the ranks, not by when a
+    team or block finishes: the float32 sums are bit for bit those of
+    adding each block's teams in team order and the blocks in rank order,
+    and differ (in the last bits) from adding the blocks in reverse, which
+    the kernel never does (no float atomics)."""
+    f, a = 4096, 64
+    p = fp.pilot_plan(a, f)
+    abs2 = (np.random.default_rng(5).random((a, f)) * 10 ** np.random.default_rng(6).uniform(
+        -3, 3, (a, 1))).astype(np.float32)
+    got, _, _ = push_sum(abs2, p)
+    blocks = []
+    for rank in range(p.clusters):
+        part = np.zeros(f, np.float32)
+        for team in range(p.teams):
+            acc = np.zeros(f, np.float32)
+            for row in fp.pilot_team_rows(a, p, rank, team):
+                acc = (acc + abs2[row]).astype(np.float32)
+            part = (part + acc).astype(np.float32)
+        blocks.append(part)
+    fwd = np.zeros(f, np.float32)
+    for v in blocks:
+        fwd = (fwd + v).astype(np.float32)
+    rev = np.zeros(f, np.float32)
+    for v in reversed(blocks):
+        rev = (rev + v).astype(np.float32)
+    np.testing.assert_array_equal(got, fwd)
+    assert np.any(got != rev)
+
+
+@pytest.mark.parametrize("a,f", [(4, 64), (16, 512), (16, 4096), (64, 2048)])
+def test_push_wrapper_hands_the_kernel_its_plan_and_table(monkeypatch, a, f):
+    """estimate_pilot_fused at a push size on a recording library: the
+    plan (clusters, teams, rows, shared memory) of pilot_plan and the
+    push form's twiddle table (pilot_twiddles), no scratch and no counts;
+    pilot_ls_sum counted for invert = False."""
+    import contextlib
+
+    from ofdm_ls_mrc_tpu_torch.kernels import build
+
+    calls = []
+
+    class Lib:
+        def ofdm_pilot_ls(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pipe, "_device_route", lambda x, name: True)
+    monkeypatch.setattr(build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {
+        "cuda_stream": 12345})())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(pipe, "launch_counts", {k: 0 for k in pipe.launch_counts})
+    rows = CArray(torch.zeros((3, a, f)), torch.zeros((3, a, f)))
+    x = tls.pad_pilot(np.ones(f - 1, np.complex64), "cpu")
+    pipe.estimate_pilot_fused(rows, x)
+    pipe.estimate_pilot_fused(rows, x, invert=False)
+    (args, args_sum) = calls
+    p = fp.pilot_plan(a, f, 3)
+    assert args[10:14] == (p.clusters, p.teams, p.rows, p.smem_bytes)
+    assert args[16] == fp.pilot_twiddles(f, torch.device("cpu")).data_ptr()
+    assert args[20] == 1 and args_sum[20] == 0
+    assert args[21] is None and args[23] is None
+    assert pipe.launch_counts["pilot_ls"] == 1 and pipe.launch_counts["pilot_ls_sum"] == 1
