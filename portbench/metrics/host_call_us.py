@@ -1,0 +1,8 @@
+"""Mean host time to return from one call of the entry in the traced
+closed-loop window (enqueue, no synchronize)."""
+
+from portbench.readers import host_call_us
+
+
+def read(run):
+    return host_call_us(run) if run.traffic["loop"] == "closed" else None
