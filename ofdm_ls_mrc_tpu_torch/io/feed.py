@@ -184,9 +184,14 @@ class RingFeed:
         from index 0).  Loses at most ring-capacity + frame_len symbols and
         repeats if further drops land while resyncing."""
         for _ in range(3):   # bounded: fresh drops can land on EVERY pass
+            # The drop count is read BEFORE the drain: a drop counted after
+            # it may lie behind symbols the drain leaves queued (the ring
+            # refills and overruns again), and counting it would label the
+            # next clean frame a whole frame ahead.  Drops that land between
+            # this read and the drain change ``now`` below and retry.
+            dropped = getattr(self.ring, "dropped", self._dropped_seen)
             drained = self.ring.skip(self.ring.available)
             self._consumed_symbols += drained
-            dropped = getattr(self.ring, "dropped", self._dropped_seen)
             mis = (self._consumed_symbols + dropped) % fl
             # Blocking read-and-discard (not skip) keeps correct
             # backpressure when the boundary symbols haven't arrived yet.
@@ -195,11 +200,16 @@ class RingFeed:
                 self._consumed_symbols += 1
             now = getattr(self.ring, "dropped", dropped)
             if now == dropped:
+                # Keep the count the alignment used: a drop since then is
+                # caught by the next frame's check, not folded in unseen.
                 break
-        # On give-up (drops every pass: producer faster than even our
-        # discard reads), fall through -- the read loop's best-effort path
-        # delivers frames instead of spinning here forever.
-        self._dropped_seen = getattr(self.ring, "dropped", self._dropped_seen)
+        else:
+            # On give-up (drops every pass: producer faster than even our
+            # discard reads), fall through -- the read loop's best-effort
+            # path delivers frames instead of spinning here forever, dirty
+            # while the cursor sits off a writer frame boundary.
+            dropped = getattr(self.ring, "dropped", dropped)
+        self._dropped_seen = dropped
         self._pending_resync = False
         self._just_resynced = True
         self.resynced_frames += 1

@@ -56,6 +56,7 @@ from ..ops import mrc as mrc_ops
 from ..ops import pipeline as pipe
 from ..ops.cplx import CArray, DeviceLike, resolve_device
 from ..ops.modulate import drop_cyclic_prefix
+from ..utils import profiling
 
 FrameLike = Union[np.ndarray, CArray]
 
@@ -239,11 +240,14 @@ class UplinkReceiver(nn.Module):
         """[K, S, A, F+cp] capture (K whole frames) -> [K, S-1, F-1].
 
         The fused pipeline sends all K frames through one launch of each
-        kernel; 'fast' and 'composed' batch them in their tensor ops."""
-        frames = self._as_carray(frames)
-        if frames.ndim != 4:
-            raise ValueError(f"capture must be [K, S, A, F+cp], got {frames.shape}")
-        return self.demod_frame(frames)
+        kernel; 'fast' and 'composed' batch them in their tensor ops.  While
+        a profiler runs, the call is the span ``rx.demod_capture``, the
+        root of the wrappers' spans (``utils/profiling.annotate``)."""
+        with profiling.annotate("rx.demod_capture"):
+            frames = self._as_carray(frames)
+            if frames.ndim != 4:
+                raise ValueError(f"capture must be [K, S, A, F+cp], got {frames.shape}")
+            return self.demod_frame(frames)
 
     # -- build ahead of time -------------------------------------------------
     def warmup(self) -> None:

@@ -43,6 +43,12 @@ file 256 KB for every thread of the SM), so the exact kernels run F = 16384
 and 32768 in the four-step split of the section "the split form" below
 (``csrc/fft_split.cuh``), and the bf16 speed kernels run F = 8192 to 32768
 on its first step.
+
+Each function that computes a host table (``pass_twiddles_np``,
+``split_tables_np``, ``speed_twiddles_np``, ``speed_w_np``,
+``speed_w_image_np``) counts it while a profiler runs
+(``utils/profiling.TABLE``), a table built from others once; a cached
+device table counts only when it is first built.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 # F -> (radices of the passes, the first being M, the values a thread
 # holds; teams per symbol P; threads per block; blocks an SM should hold).
@@ -104,6 +112,7 @@ def strides(f: int, p: Optional[Plan] = None) -> Tuple[int, ...]:
     return tuple(out)
 
 
+@profiling.counts(profiling.TABLE)
 def pass_twiddles_np(f: int, p: Optional[Plan] = None) -> np.ndarray:
     """[n, 2] float32 (cos, sin) for passes 1..: pass p's block starts after
     the blocks of the passes before it and holds R Ns entries, entry
@@ -516,6 +525,7 @@ def split_smem_bytes(teams: int) -> int:
     return 4 * teams * SPLIT_K1 * team_floats(SPLIT_N2)
 
 
+@profiling.counts(profiling.TABLE)
 def split_tables_np(f: int, int16: bool = False) -> np.ndarray:
     """[n, 2] float32 (cos, sin): the pass twiddles of the n1-point column
     FFT, those of the 128-point row FFT, then the [n1, 128] four-step
@@ -884,6 +894,7 @@ def speed_split(f: int) -> Tuple[int, int]:
     return f // SPEED_N2, SPEED_N2
 
 
+@profiling.counts(profiling.TABLE)
 def speed_twiddles_np(f: int, int16: bool = False) -> np.ndarray:
     """[n1, 128] complex64 stage-1 twiddles exp(-2 pi i k1 i2 / F), computed
     in float64 and cast to complex64; for int16 rows divided by 32767 in
@@ -898,6 +909,7 @@ def speed_twiddles_np(f: int, int16: bool = False) -> np.ndarray:
     return tw / SC16_FULL_SCALE if int16 else tw
 
 
+@profiling.counts(profiling.TABLE)
 def speed_w_np() -> np.ndarray:
     """[128, 256] float32 [Wr | Wi] of exp(-2 pi i j k / 128), computed in
     float64 and cast to float32 (``pallas_pipeline._stage2_consts``); the
@@ -1000,6 +1012,7 @@ def speed_swizzle(rows: int, m: int, k: int) -> int:
     return (k // 64) * rows * 128 + m * 128 + ((((k % 64) // 8) ^ (m % 8)) << 4) + (k % 8) * 2
 
 
+@profiling.counts(profiling.TABLE)
 def speed_w_image_np() -> np.ndarray:
     """[32768] float32: the B operand as the kernels lay it out in shared
     memory (``speed_swizzle`` of operand row n, column k holds W[row, 128

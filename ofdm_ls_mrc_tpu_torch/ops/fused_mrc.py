@@ -11,7 +11,10 @@ result is the full-width equalized grid in true order, ready for
 pipelines.  The wrapper runs the plain version for tensors on the CPU, and
 only there; for CUDA tensors it launches the kernel or raises.
 
-``launch_counts`` counts kernel launches; only a launch adds to it.
+``launch_counts`` counts kernel launches; only a launch adds to it.  On
+the card route the wrapper records the spans ``data.prepare`` (checks,
+scratch, tables, the output) and ``data.launch`` (the C entry) while a
+profiler runs (``utils/profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict
 import torch
 
 from ..kernels import build
+from ..utils import profiling
 from . import fft as fft_ops
 from . import fft_plan
 from . import mrc as mrc_ops
@@ -70,29 +74,31 @@ def fused_demod(y: CArray, hconj: CArray, hsqrd: torch.Tensor) -> CArray:
         raise ValueError(f"fused_demod: F={f} not in {MRC_DEMOD_FFT_SIZES}")
     if not _device_route(y, "fused_demod"):
         return fused_demod_plain(y, hconj, hsqrd)
-    _check_rows(y, "fused_demod: y", 3)
-    dev = y.device
-    _check_dense(hconj.re, "hconj.re", (a, f), dev)
-    _check_dense(hconj.im, "hconj.im", (a, f), dev)
-    _check_dense(hsqrd, "hsqrd", (f,), dev)
-    out = CArray(torch.empty((s, f), dtype=torch.float32, device=dev),
-                 torch.empty((s, f), dtype=torch.float32, device=dev))
-    lib = build.load_library()
-    st = y.re.stride()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with profiling.annotate("data.prepare"):
+        _check_rows(y, "fused_demod: y", 3)
+        dev = y.device
+        _check_dense(hconj.re, "hconj.re", (a, f), dev)
+        _check_dense(hconj.im, "hconj.im", (a, f), dev)
+        _check_dense(hsqrd, "hsqrd", (f,), dev)
+        out = CArray(torch.empty((s, f), dtype=torch.float32, device=dev),
+                     torch.empty((s, f), dtype=torch.float32, device=dev))
+        lib = build.load_library()
+        st = y.re.stride()
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if f == fft_plan.SPREAD_FFT or f in fft_plan.SIDE_FFT_SIZES:
             ring, counters, slots, lag = _spread_scratch(s, a, f, (hconj.re, hconj.im), dev,
                                                          stream)
         else:
             ring, counters, slots, lag = _split_ring(s, a, f, (hconj.re, hconj.im, hsqrd),
                                                      dev, fft_plan.SPLIT_K1)
-        err = lib.ofdm_mrc_demod(
-            y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
-            int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,
-            hconj.re.data_ptr(), hconj.im.data_ptr(), hsqrd.data_ptr(),
-            _data_table(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
-            _ptr(ring), slots, lag, _ptr(counters), stream)
-    build.check(lib, err, "mrc_demod")
-    launch_counts["mrc_demod"] += 1
+        args = (y.re.data_ptr(), y.im.data_ptr(), int(y.dtype == torch.int16),
+                int(_rows_aligned(y)), st[0], st[1], _scale(y), s, a, f,
+                hconj.re.data_ptr(), hconj.im.data_ptr(), hsqrd.data_ptr(),
+                _data_table(f, dev).data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+                _ptr(ring), slots, lag, _ptr(counters), stream)
+    with profiling.annotate("data.launch"):
+        with torch.cuda.device(dev):
+            err = lib.ofdm_mrc_demod(*args)
+        build.check(lib, err, "mrc_demod")
+        profiling.launched(launch_counts, "mrc_demod")
     return out

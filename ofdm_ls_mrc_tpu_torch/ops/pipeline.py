@@ -59,6 +59,10 @@ covers all K frames (``UplinkReceiver.demod_capture``).
 un-inverted variant under ``pilot_ls_sum``, the speed kernels under
 ``pilot_ls_bf16`` and ``fft_mrc_bf16``); only a launch adds to it, so a
 run on the card can show that the path went through the kernels.
+While a profiler runs, each wrapper's card route records two spans
+(``utils/profiling.annotate``): ``pilot.prepare`` or ``data.prepare`` from
+its entry to the C call (checks, plans, tables, scratch, outputs), and
+``pilot.launch`` or ``data.launch`` around the C call and its check.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ import torch
 
 from ..golden.io import SC16_FULL_SCALE
 from ..kernels import build
+from ..utils import profiling
 from . import fft as fft_ops
 from . import fft_plan
 from .cplx import CArray, cdiv
@@ -292,28 +297,28 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
         if not exact:
             return estimate_pilot_speed_plain(pilot, x_full)
         return estimate_pilot_plain(pilot, x_full, invert=invert)
-    single = pilot.ndim == 2
-    p = pilot[None] if single else pilot
-    _check_rows(p, "estimate_pilot_fused: pilot", 3)
-    k, a, f = p.shape
-    _check_size(f, exact, "estimate_pilot_fused")
-    if k > MAX_FRAMES:
-        raise ValueError(f"estimate_pilot_fused: {k} frames in one call > {MAX_FRAMES}")
-    dev = p.device
-    _check_dense(x_full.re, "x_full.re", (f,), dev)
-    _check_dense(x_full.im, "x_full.im", (f,), dev)
-    if any(t.data_ptr() % 16 for t in (x_full.re, x_full.im)):
-        raise ValueError("estimate_pilot_fused: x_full planes must start 16-byte aligned "
-                         "(the kernel copies X in 16-byte chunks)")
-    h = CArray(torch.empty((k, a, f), dtype=torch.float32, device=dev),
-               torch.empty((k, a, f), dtype=torch.float32, device=dev))
-    inv = torch.empty((k, f), dtype=torch.float32, device=dev)
-    lib = build.load_library()
-    int16 = p.dtype == torch.int16
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch, chunk = _split_scratch(k, a, f, SPLIT_FFT_SIZES if exact else SPEED_SPLIT_SIZES,
-                                    dev)
-    with torch.cuda.device(dev):
+    with profiling.annotate("pilot.prepare"):
+        single = pilot.ndim == 2
+        p = pilot[None] if single else pilot
+        _check_rows(p, "estimate_pilot_fused: pilot", 3)
+        k, a, f = p.shape
+        _check_size(f, exact, "estimate_pilot_fused")
+        if k > MAX_FRAMES:
+            raise ValueError(f"estimate_pilot_fused: {k} frames in one call > {MAX_FRAMES}")
+        dev = p.device
+        _check_dense(x_full.re, "x_full.re", (f,), dev)
+        _check_dense(x_full.im, "x_full.im", (f,), dev)
+        if any(t.data_ptr() % 16 for t in (x_full.re, x_full.im)):
+            raise ValueError("estimate_pilot_fused: x_full planes must start 16-byte aligned "
+                             "(the kernel copies X in 16-byte chunks)")
+        h = CArray(torch.empty((k, a, f), dtype=torch.float32, device=dev),
+                   torch.empty((k, a, f), dtype=torch.float32, device=dev))
+        inv = torch.empty((k, f), dtype=torch.float32, device=dev)
+        lib = build.load_library()
+        int16 = p.dtype == torch.int16
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, chunk = _split_scratch(k, a, f,
+                                        SPLIT_FFT_SIZES if exact else SPEED_SPLIT_SIZES, dev)
         if exact:
             name = "pilot_ls" if invert else "pilot_ls_sum"
             plan = fft_plan.pilot_plan(a, f, k)
@@ -331,26 +336,29 @@ def estimate_pilot_fused(pilot: CArray, x_full: CArray, *, invert: bool = True,
                 tw = fft_plan.pilot_twiddles(f, dev)
             else:
                 tw = _exact_table(f, dev)
-            err = lib.ofdm_pilot_ls(
-                p.re.data_ptr(), p.im.data_ptr(), int(int16),
-                int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
-                plan.clusters, plan.teams, plan.rows, plan.smem_bytes,
-                x_full.re.data_ptr(), x_full.im.data_ptr(), tw.data_ptr(),
-                h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), int(invert),
-                _ptr(scratch), chunk, _ptr(counts), stream)
+            entry = lib.ofdm_pilot_ls
+            args = (p.re.data_ptr(), p.im.data_ptr(), int(int16),
+                    int(_rows_aligned(p)), p.re.stride(0), p.re.stride(1), _scale(p), k, a, f,
+                    plan.clusters, plan.teams, plan.rows, plan.smem_bytes,
+                    x_full.re.data_ptr(), x_full.im.data_ptr(), tw.data_ptr(),
+                    h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), int(invert),
+                    _ptr(scratch), chunk, _ptr(counts), stream)
         else:
             name = "pilot_ls_bf16"
             tw, w = _speed_tables(f, int16, dev)
             split = f in SPEED_SPLIT_SIZES   # the row pass: W's image, a cluster per 32 bins k1
             img = fft_plan.speed_w_image(dev) if split else None
-            err = lib.ofdm_pilot_ls_bf16(
-                p.re.data_ptr(), p.im.data_ptr(), int(int16), p.re.stride(0),
-                p.re.stride(1), k, a, f, x_full.re.data_ptr(), x_full.im.data_ptr(),
-                tw.data_ptr(), None if split else w.data_ptr(), _ptr(img),
-                fft_plan.speed_cluster(a, f, True, k) if split else 0, h.re.data_ptr(),
-                h.im.data_ptr(), inv.data_ptr(), _ptr(scratch), chunk, stream)
-    build.check(lib, err, name)
-    launch_counts[name] += 1
+            entry = lib.ofdm_pilot_ls_bf16
+            args = (p.re.data_ptr(), p.im.data_ptr(), int(int16), p.re.stride(0),
+                    p.re.stride(1), k, a, f, x_full.re.data_ptr(), x_full.im.data_ptr(),
+                    tw.data_ptr(), None if split else w.data_ptr(), _ptr(img),
+                    fft_plan.speed_cluster(a, f, True, k) if split else 0, h.re.data_ptr(),
+                    h.im.data_ptr(), inv.data_ptr(), _ptr(scratch), chunk, stream)
+    with profiling.annotate("pilot.launch"):
+        with torch.cuda.device(dev):
+            err = entry(*args)
+        build.check(lib, err, name)
+        profiling.launched(launch_counts, name)
     return (h[0], inv[0]) if single else (h, inv)
 
 
@@ -373,23 +381,23 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
     """
     if not _device_route(y, "fused_pipeline"):
         return (fused_pipeline_plain if exact else fused_pipeline_speed_plain)(y, h, inv)
-    single = y.ndim == 3
-    if single:
-        y, h, inv = y[None], h[None], inv[None]
-    _check_rows(y, "fused_pipeline: y", 4)
-    k, s, a, f = y.shape
-    _check_size(f, exact, "fused_pipeline")
-    dev = y.device
-    _check_dense(h.re, "h.re", (k, a, f), dev)
-    _check_dense(h.im, "h.im", (k, a, f), dev)
-    _check_dense(inv, "inv", (k, f), dev)
-    out = CArray(torch.empty((k, s, f - 1), dtype=torch.float32, device=dev),
-                 torch.empty((k, s, f - 1), dtype=torch.float32, device=dev))
-    lib = build.load_library()
-    st = y.re.stride()
-    int16 = y.dtype == torch.int16
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with profiling.annotate("data.prepare"):
+        single = y.ndim == 3
+        if single:
+            y, h, inv = y[None], h[None], inv[None]
+        _check_rows(y, "fused_pipeline: y", 4)
+        k, s, a, f = y.shape
+        _check_size(f, exact, "fused_pipeline")
+        dev = y.device
+        _check_dense(h.re, "h.re", (k, a, f), dev)
+        _check_dense(h.im, "h.im", (k, a, f), dev)
+        _check_dense(inv, "inv", (k, f), dev)
+        out = CArray(torch.empty((k, s, f - 1), dtype=torch.float32, device=dev),
+                     torch.empty((k, s, f - 1), dtype=torch.float32, device=dev))
+        lib = build.load_library()
+        st = y.re.stride()
+        int16 = y.dtype == torch.int16
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if exact:
             name = "fft_mrc"
             if f == fft_plan.SPREAD_FFT or f in fft_plan.SIDE_FFT_SIZES:
@@ -398,12 +406,12 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
             else:
                 ring, counters, slots, lag = _split_ring(k * s, a, f, (h.re, h.im, inv), dev,
                                                          fft_plan.SPLIT_K1)
-            err = lib.ofdm_fft_mrc(
-                y.re.data_ptr(), y.im.data_ptr(), int(int16),
-                int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
-                h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
-                _data_table(f, dev).data_ptr(), out.re.data_ptr(),
-                out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
+            entry = lib.ofdm_fft_mrc
+            args = (y.re.data_ptr(), y.im.data_ptr(), int(int16),
+                    int(_rows_aligned(y)), st[0], st[1], st[2], _scale(y), k, s, a, f,
+                    h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(),
+                    _data_table(f, dev).data_ptr(), out.re.data_ptr(),
+                    out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
         else:
             name = "fft_mrc_bf16"
             if any(t.data_ptr() % 16 for t in (h.re, h.im)):
@@ -414,13 +422,16 @@ def fused_pipeline(y: CArray, h: CArray, inv: torch.Tensor, *,
             tw, w = _speed_tables(f, int16, dev)
             split = f in SPEED_SPLIT_SIZES   # the ring's row tiles take W's image
             img = fft_plan.speed_w_image(dev) if split else None
-            err = lib.ofdm_fft_mrc_bf16(
-                y.re.data_ptr(), y.im.data_ptr(), int(int16), st[0], st[1], st[2], k, s, a,
-                f, h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(),
-                None if split else w.data_ptr(), _ptr(img), out.re.data_ptr(),
-                out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
-    build.check(lib, err, name)
-    launch_counts[name] += 1
+            entry = lib.ofdm_fft_mrc_bf16
+            args = (y.re.data_ptr(), y.im.data_ptr(), int(int16), st[0], st[1], st[2], k, s,
+                    a, f, h.re.data_ptr(), h.im.data_ptr(), inv.data_ptr(), tw.data_ptr(),
+                    None if split else w.data_ptr(), _ptr(img), out.re.data_ptr(),
+                    out.im.data_ptr(), _ptr(ring), slots, lag, _ptr(counters), stream)
+    with profiling.annotate("data.launch"):
+        with torch.cuda.device(dev):
+            err = entry(*args)
+        build.check(lib, err, name)
+        profiling.launched(launch_counts, name)
     return out[0] if single else out
 
 

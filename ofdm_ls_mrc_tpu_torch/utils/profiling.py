@@ -5,8 +5,19 @@
                                  the CPU activity, and the CUDA activity when
                                  a card is there, written as a Chrome trace
                                  (TensorBoard-loadable) into ``logdir``.
-* ``annotate(name)``          -- a named region of the trace
-                                 (``torch.profiler.record_function``).
+* ``annotate(name)``          -- the port's one span primitive: while a
+                                 ``torch.profiler`` session runs it records
+                                 (name, call, parent, start, end) on
+                                 ``time.time_ns``, and inside ``trace()``
+                                 also a named region of the Chrome trace;
+                                 off, a shared no-op.
+* ``mark(name)``, ``counts(name)``, ``launched(counts, name)`` -- counters
+                                 recorded as zero-length spans in the same
+                                 buffer: a table built (``TABLE``), a kernel
+                                 launched (``LAUNCH``).
+* ``spans()``, ``clear_spans()``, ``breakdown(records)`` -- the records,
+                                 emptying them, and each name's count, total
+                                 and self time.
 * ``summarize_trace(logdir)`` -- {name: (seconds, count)} of that trace,
                                  CUDA kernels only by default.
 * ``device_time(fn, items)``  -- seconds per item of ``fn`` over ``items``:
@@ -29,14 +40,20 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import glob
 import gzip
+import itertools
 import json
 import os
+import struct
+import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from array import array
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_PAD = 64           # spin kernels at the head of each CUDA trace
 PAD_KERNEL = "spin_kernel"
@@ -58,17 +75,210 @@ def trace(logdir: str):
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
+    global _chrome
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
-        if cuda:
-            _pad()
-        yield
-        if cuda:
-            torch.cuda.synchronize()
+        _chrome += 1
+        try:
+            if cuda:
+                _pad()
+            yield
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            _chrome -= 1
+
+
+# ---------------------------------------------------------------------------
+# Spans and counters
+# ---------------------------------------------------------------------------
+#
+# A record is five integers in one flat buffer: the name's index, the call
+# id, the parent's name index (-1 at the top), start and end on
+# ``time.time_ns`` (the clock the profiler's device events are read on, so
+# a span and a kernel compare directly).  The outermost open span opens a
+# new call id; every span and mark inside it carries that id.  A counter is
+# a mark: a record whose start is its end.
+
+TABLE = "plan.table"          # a host table computed (``counts``)
+LAUNCH = "kernel.launched"    # a kernel launched (``launched``)
+
+
+class Span(NamedTuple):
+    name: str
+    call: int
+    parent: Optional[str]
+    start_ns: int
+    end_ns: int
+
+
+_NOOP = contextlib.nullcontext()
+_names: Dict[str, int] = {}
+_name_list: List[str] = []
+_naming = threading.Lock()    # a new name's index and its list entry together
+_recorders: Dict[str, "_Recorder"] = {}
+_records = array("q")
+_decoded: List["Span"] = []   # spans() of the records so far, decoded once
+_calls = itertools.count(1)
+_chrome = 0                   # trace() sessions open: spans also enter record_function
+_now = time.time_ns
+_write = _records.frombytes
+_pack = struct.Struct("5q").pack
+
+
+class _Local(threading.local):
+    def __init__(self):
+        self.stack = []       # (name index, call, parent, start) of each open span
+        self.counting = ()    # the names ``counts`` is inside
+
+
+_local = _Local()
+
+
+def _index(name: str) -> int:
+    i = _names.get(name)
+    if i is None:
+        with _naming:
+            i = _names.get(name)
+            if i is None:
+                i = _names[name] = len(_name_list)
+                _name_list.append(name)
+    return i
+
+
+class _Recorder:
+    """The span of one name; what an open span needs is on the thread's
+    stack, so one recorder serves every span of its name."""
+    __slots__ = ("index",)
+
+    def __init__(self, name: str):
+        self.index = _index(name)
+
+    def __enter__(self):
+        stack = _local.stack
+        if stack:
+            top = stack[-1]
+            stack.append((self.index, top[1], top[0], _now()))
+        else:
+            stack.append((self.index, next(_calls), -1, _now()))
+        return self
+
+    def __exit__(self, kind, value, tb):
+        end = _now()
+        _write(_pack(*_local.stack.pop(), end))
+        return False
+
+
+class _Region(_Recorder):
+    """A span that is also a named region of ``trace()``'s Chrome trace."""
+    __slots__ = ("region",)
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.region = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.region.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, kind, value, tb):
+        super().__exit__(kind, value, tb)
+        return self.region.__exit__(kind, value, tb)
 
 
 def annotate(name: str):
-    """Named region for the trace viewer (and ``summarize_trace``)."""
-    return torch.profiler.record_function(name)
+    """A span named ``name`` around the block, recorded while a
+    ``torch.profiler`` session runs (the harness's traced window,
+    ``trace()``), and inside ``trace()`` also a named region of the Chrome
+    trace (``summarize_trace``).  With no session running it returns one
+    shared no-op context: the cost is one flag read."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    if _chrome:
+        return _Region(name)
+    rec = _recorders.get(name)
+    if rec is None:
+        rec = _recorders[name] = _Recorder(name)
+    return rec
+
+
+def mark(name: str) -> None:
+    """A counter: one zero-length record in the open span (call 0 outside
+    any), while a ``torch.profiler`` session runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = _local.stack
+    parent, call = (stack[-1][0], stack[-1][1]) if stack else (-1, 0)
+    now = _now()
+    _write(_pack(_index(name), call, parent, now, now))
+
+
+def counts(name: str):
+    """Decorator: one ``mark(name)`` a call of the function, and none for
+    the calls it makes to other functions counted under the same name (a
+    table built from other tables is one table)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            inside = _local.counting
+            if name in inside:
+                return fn(*args, **kwargs)
+            mark(name)
+            _local.counting = inside + (name,)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _local.counting = inside
+        return counted
+    return wrap
+
+
+def launched(launch_counts: Dict[str, int], name: str) -> None:
+    """One launch of kernel ``name``: its wrapper's ``launch_counts`` entry
+    (``kernel_launches()``) and a ``LAUNCH`` mark."""
+    launch_counts[name] += 1
+    mark(LAUNCH)
+
+
+def spans() -> List[Span]:
+    """Every span and mark recorded since the last ``clear_spans()``, in the
+    order they closed (a span after the spans inside it)."""
+    names = _name_list
+    rest = iter(_records[5 * len(_decoded):])
+    _decoded.extend(Span(names[i], call, names[p] if p >= 0 else None, start, end)
+                    for i, call, p, start, end in zip(rest, rest, rest, rest, rest))
+    return list(_decoded)
+
+
+def clear_spans() -> None:
+    del _records[:]
+    _decoded.clear()
+
+
+def breakdown(records: List[Span]) -> Dict[str, Tuple[int, int, int]]:
+    """{name: (count, total ns, self ns)} of the spans among ``records``
+    (marks left out): a span's self time is its duration less that of the
+    spans directly inside it (same call, and its interval)."""
+    out: Dict[str, List[int]] = collections.defaultdict(lambda: [0, 0, 0])
+    by_call: Dict[int, List[Span]] = collections.defaultdict(list)
+    for r in records:
+        if r.end_ns > r.start_ns:
+            by_call[r.call].append(r)
+    for recs in by_call.values():
+        open_: List[Span] = []
+        for r in sorted(recs, key=lambda r: (r.start_ns, -r.end_ns)):
+            while open_ and open_[-1].end_ns <= r.start_ns:
+                open_.pop()
+            d = r.end_ns - r.start_ns
+            if open_:
+                out[open_[-1].name][2] -= d
+            row = out[r.name]
+            row[0] += 1
+            row[1] += d
+            row[2] += d
+            open_.append(r)
+    return {k: (v[0], v[1], v[2]) for k, v in out.items()}
 
 
 def summarize_trace(logdir: str, device_only: bool = True) -> Dict[str, Tuple[float, int]]:

@@ -1,8 +1,11 @@
 """The port's RingFeed against the JAX package's, on the same ring contents.
 
 The reader thread's overrun, resync and best-effort logic and the writer
-ordinal were carried over line for line; these tests hold the two feeds to
-the same frames, bit for bit, and the same provenance after every frame
+ordinal were carried over line for line, but for where the resync reads the
+drop count (before its drain, not after: see
+``test_drop_after_the_drain_is_not_counted_ahead_of_the_queue``); these
+tests hold the two feeds to the same frames, bit for bit, and the same
+provenance after every frame
 (``last_frame_dirty``, ``last_frame_writer_seq``) and at the end
 (``drop_events``, ``resynced_frames``, ``dirty_frames``,
 ``skipped_frames``).  Scripted rings pin where drops land (a real no-wait
@@ -73,6 +76,23 @@ class _ScriptedRing:
 
     def shutdown(self):
         self._stream = []
+
+
+class _RefillingRing(_ScriptedRing):
+    """A scripted ring whose writer, right after the resync's first drain,
+    refills ``refill`` symbols and then drops a whole frame: the count rises
+    to ``dropped_after`` before the feed can read it."""
+
+    def __init__(self, stream, shutdown_error, queued, refill, dropped_after):
+        super().__init__(stream, shutdown_error, queued)
+        self._refill, self._dropped_after = refill, dropped_after
+
+    def skip(self, n):
+        k = super().skip(n)
+        if self._refill:
+            self._queued, self._dropped = self._refill, self._dropped_after
+            self._refill = 0
+        return k
 
 
 def _drive(pkg, ring, fl, max_frames, **kw):
@@ -245,6 +265,33 @@ def test_real_ring_same_frames_and_provenance(scenario):
         else:
             np.testing.assert_array_equal(re, want.real)
             np.testing.assert_array_equal(im, want.imag)
+
+
+def test_drop_after_the_drain_is_not_counted_ahead_of_the_queue():
+    """Frame 0 reads clean; symbol 3 drops while frame 1 is read, so frame 1
+    is discarded and the feed resyncs over the queued 7-9.  Right after that
+    drain the writer queues 10-12 and drops 13-15.  The port read the count
+    before the drain, so the drop shows up as a change, it resyncs again and
+    the next frames are the writer's frames 6 and 7.  The JAX package reads
+    the count after the drain and delivers 12, 16, 17 as a clean frame 5."""
+    fl = 3
+    stream = ([(i, 0) for i in range(3)] + [(i, 1) for i in range(4, 10)]
+              + [(i, 4) for i in (10, 11, 12)] + [(i, 4) for i in range(16, 24)])
+
+    def run(pkg, n):                 # n: the frames the script holds for pkg
+        ring = _RefillingRing(stream, PACKAGES[pkg][2].RingShutdown, queued=9,
+                              refill=3, dropped_after=4)
+        return _drive(pkg, ring, fl, n)
+
+    frames, counts = run("port", 3)
+    assert [(int(re[0, 0, 0]), d, w) for re, _, d, w in frames] == [
+        (0, False, 0), (18, False, 6), (21, False, 7)]
+    for re, _, _, w in frames:                  # every symbol its own frame's
+        np.testing.assert_array_equal(re[:, 0, 0], np.arange(fl) + fl * w)
+    assert tuple(counts[name] for name in COUNTERS) == (1, 1, 0, 0)
+    jframes, _ = run("jax", 4)
+    assert [(re[:, 0, 0].tolist(), d, w) for re, _, d, w in jframes[1:2]] == [
+        ([12.0, 16.0, 17.0], False, 5)]
 
 
 def test_port_feed_rejects_what_the_jax_feed_rejects():
